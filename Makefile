@@ -1,6 +1,6 @@
 .PHONY: verify verify-fast bench-trials bench-campaign bench-fabric \
 	bench-online bench-chaos bench-measured bench-serving \
-	bench-telemetry
+	bench-telemetry verify-torch chip-smoke
 
 # tier-1: full suite, fail-fast (ROADMAP.md)
 verify:
@@ -48,3 +48,13 @@ bench-serving:
 # consistency, bit-identity with tracing off) -> BENCH_telemetry.json
 bench-telemetry:
 	PYTHONPATH=src:. python -m benchmarks.bench_telemetry
+
+# the PyTorch/CUDA port's parity tests against the JAX package (CPU)
+verify-torch:
+	./scripts/verify.sh tests/test_torch_space.py tests/test_torch_kernels.py \
+		tests/test_torch_layers.py tests/test_torch_model.py \
+		tests/test_torch_serving.py
+
+# the port on one CUDA device: builds the kernels, checks them, serves
+chip-smoke:
+	python3 chip_smoke.py
