@@ -53,7 +53,9 @@ bench-telemetry:
 verify-torch:
 	./scripts/verify.sh tests/test_torch_space.py tests/test_torch_kernels.py \
 		tests/test_torch_layers.py tests/test_torch_model.py \
-		tests/test_torch_serving.py
+		tests/test_torch_serving.py tests/test_torch_hybrid.py \
+		tests/test_torch_hybrid_model.py tests/test_torch_hybrid_bf16.py \
+		tests/test_torch_hybrid_serving.py
 
 # the port on one CUDA device: builds the kernels, checks them, serves
 chip-smoke:

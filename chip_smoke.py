@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Drives the port's serving path (``repro_torch.launch.serve`` and
-``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m at its
-full width and depth with random weights from a seed, builds the three
+Drives the port's two serving paths (``repro_torch.launch.serve`` and
+``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m (dense)
+and zamba2-7b (hybrid: Mamba2 + shared attention), each at its full
+width and depth with random weights from a seed, builds the four
 hand-written CUDA kernels from ``src/repro_torch/csrc`` and holds each
 against its plain PyTorch version on the card, and shows by the
-wrappers' launch counters that the serving path went through them.
+wrappers' launch counters that each path went through its kernels.
 
 Phases, one JSON line each: env, build, kernels, agree (kernel path vs
-eager path of the whole model), serve, scheduler, launches.  Any failure
-raises and the run exits non-zero.  The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it is the card's name
-and power limit; the line before that is the ``{"kernels": [...]}``
-record.
+eager path of the whole model, per model), then for each model serve,
+scheduler and launches (every counter set to 0 just before the path and
+read right after it).  Any failure raises and the run exits non-zero.
+The last line of standard output is ``{"ok": true, "device": {...}}``;
+the line before it is the card's name and power limit; the line before
+that is the ``{"kernels": [...]}`` record, whose ``launches`` sum both
+paths' counts (``launches_by_path`` keeps them apart).
 
 Peak rates used for ``bound_ms`` (NVIDIA H100 SXM data sheet, dense):
 3.35e12 bytes/s device memory, 989e12 op/s for bf16 operands (tensor
@@ -23,7 +26,9 @@ cores), 67e12 op/s for f32 operands.  ``bound_ms`` is the larger of
 (bytes of each input read once + each output written once) / memory rate
 and operations / peak rate for the operand type; for causal attention
 and for decode the operations and bytes counted are those this run's
-data needs (the causal half; the live part of the cache).
+data needs (the causal half; the live part of the cache); for the SSD
+scan, the products of the chunked algorithm at the chunk this run fits
+(f32 operands: B, C and the decayed scores are f32).
 
 Timings (``ms``, ``plain_ms``, ``library_ms``): device time per call, from
 CUDA events around the replay of a CUDA graph that holds repeated calls,
@@ -212,6 +217,10 @@ def kernels_flash_attention(gen) -> dict:
         ((2, 257, 2, 32), True, (128, 128)),      # prime S: tiles fit to 1
         ((2, 192, 3, 64), False, (128, 64)),      # non-causal
         ((1, 1, 2, 64), True, (128, 128)),        # S = 1
+        ((4, 1024, 32, 112), True, (128, 128)),   # zamba2-7b prefill
+        ((2, 300, 3, 112), True, (128, 128)),     # hd 112, ragged
+        ((1, 512, 4, 192), True, (128, 128)),     # nemotron-4-340b hd 192
+        ((2, 257, 2, 192), False, (128, 64)),     # hd 192, prime S
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, causal, (bq, bkv) in cases:
@@ -223,13 +232,17 @@ def kernels_flash_attention(gen) -> dict:
                         TOL[dtype])
             worst = max(worst, err)
     # a KV tile that cannot fit the block's shared memory raises
-    q = _randn(gen, (1, 512, 2, 128), torch.bfloat16)
-    try:
-        ops.flash_attention(q, q, q, block_q=128, block_kv=512)
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("a 256 KB KV tile was not refused")
+    refused = []
+    for hd, need in ((128, 262_144), (192, 393_216)):
+        q = _randn(gen, (1, 512, 2, hd), torch.bfloat16)
+        try:
+            ops.flash_attention(q, q, q, block_q=128, block_kv=512)
+        except ValueError as e:
+            if str(need) not in str(e):
+                raise
+            refused.append(str(e))
+        else:
+            raise AssertionError(f"a {need} B KV tile was not refused")
 
     def timed(shape, dtype, tiles=(128, 128)):
         B, S, H, hd = shape
@@ -251,7 +264,8 @@ def kernels_flash_attention(gen) -> dict:
     shapes = [timed((4, 1024, 9, 64), torch.bfloat16),
               timed((4, 1024, 9, 64), torch.float32),
               timed((4, 1024, 9, 64), torch.bfloat16, (256, 256)),
-              timed((4, 1024, 9, 64), torch.bfloat16, (512, 512))]
+              timed((4, 1024, 9, 64), torch.bfloat16, (512, 512)),
+              timed((4, 1024, 32, 112), torch.bfloat16)]   # zamba2-7b
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
@@ -260,6 +274,7 @@ def kernels_flash_attention(gen) -> dict:
             **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "timed_shape": "q/k/v (4,1024,9,64) bf16 causal, tiles 128/128",
+            "head_dims_checked": sorted({c[0][3] for c in cases}),
             "refused": refused, "shapes": shapes}
 
 
@@ -302,9 +317,23 @@ def kernels_flash_decode(gen) -> dict:
     worst = max(worst, check("flash_decode hd32", ops.flash_decode(
         q, kc, vc, 77, ks, vs, block_kv=128),
         plain(q, kc, vc, ks, vs, 77), 2e-2))
+    # hd 112 (zamba2-7b: H = Hkv = 32, the serving path's cache) and hd
+    # 192 (nemotron-4-340b: 96 query heads on 8 KV heads)
+    for kv in ("bfloat16", "float32", "int8"):
+        tol = TOL[torch.float32] if kv == "float32" else 2e-2
+        for (B, S, H, Hkv, hd), lengths in (
+                ((4, 1088, 32, 32, 112), (1, 1025, 1088)),
+                ((2, 640, 96, 8, 192), (333, 640))):
+            q, kc, vc, ks, vs = make(B, S, H, Hkv, hd, kv)
+            for length in lengths:
+                got = ops.flash_decode(q, kc, vc, length, ks, vs,
+                                       block_kv=128)
+                worst = max(worst, check(
+                    f"flash_decode {kv} hd{hd} length={length}", got,
+                    plain(q, kc, vc, ks, vs, length), tol))
 
-    def timed(kv, length):
-        B, S, H, Hkv, hd = 4, 2048, 9, 3, 64
+    def timed(kv, length, geometry=(4, 2048, 9, 3, 64)):
+        B, S, H, Hkv, hd = geometry
         q, kc, vc, ks, vs = make(B, S, H, Hkv, hd, kv)
         live = 2 * B * length * Hkv * hd * kc.element_size()
         if ks is not None:
@@ -327,9 +356,11 @@ def kernels_flash_decode(gen) -> dict:
                 "plain_ms": time_ms(
                     lambda: plain(q, kc, vc, ks, vs, length)),
                 "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
-    # the serving path's shapes: B=4, cache grown to about 1056 positions
+    # the serving paths' shapes: B=4, cache grown to about 1056 positions
+    zamba = (4, 1088, 32, 32, 112)
     shapes = [timed("bfloat16", 1056), timed("int8", 1056),
-              timed("bfloat16", 2048)]
+              timed("bfloat16", 2048), timed("bfloat16", 1056, zamba),
+              timed("int8", 1056, zamba)]
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:84",
@@ -342,11 +373,80 @@ def kernels_flash_decode(gen) -> dict:
             "shapes": shapes}
 
 
+def kernels_ssm_scan(gen) -> dict:
+    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.kernels.tiling import fit_block
+    tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py
+
+    def make(B, S, H, P, N, xdtype):
+        """The reference test's distributions; B/C/dt/la f32 as the model
+        passes them, X in the compute dtype."""
+        X = _randn(gen, (B, S, H, P), xdtype)
+        Bm = _randn(gen, (B, S, N), torch.float32) * 0.5
+        Cm = _randn(gen, (B, S, N), torch.float32) * 0.5
+        dt = torch.nn.functional.softplus(_randn(gen, (B, S, H), torch.float32))
+        la = -dt * torch.exp(_randn(gen, (H,), torch.float32) * 0.2)
+        return X, Bm, Cm, dt, la
+
+    worst, checked = 0.0, []
+    cases = [((4, 1024, 112, 64, 64), 256),   # zamba2-7b prefill, B 4
+             ((4, 1000, 112, 64, 64), 256),   # ragged: chunk fits to 250
+             ((1, 997, 8, 64, 64), 256),      # prime S: chunk fits to 1
+             ((2, 130, 2, 8, 8), 32),         # tests/test_kernels.py ragged
+             ((1, 64, 2, 16, 8), 16)]
+    for (B, S, H, P, N), chunk in cases:
+        for xdtype in (torch.bfloat16, torch.float32):
+            ins = make(B, S, H, P, N, xdtype)
+            Y, h = ops.ssm_scan(*ins, chunk=chunk)
+            Yp, hp = ref.ssm_scan_chunked(*ins, fit_block(chunk, S))
+            name = f"ssm_scan {xdtype} {(B, S, H, P, N)} chunk={chunk}"
+            worst = max(worst, check(name + " Y", Y, Yp, tol[xdtype]),
+                        check(name + " h", h, hp, tol[xdtype]))
+            checked.append(name)
+
+    def timed(B, S, chunk=256, H=112, P=64, N=64, xdtype=torch.bfloat16,
+              plain=True):
+        X, Bm, Cm, dt, la = make(B, S, H, P, N, xdtype)
+        Q = fit_block(chunk, S)
+        el = X.element_size()
+        nbytes = (2 * B * S * H * P * el + 2 * B * S * N * 4
+                  + 2 * B * S * H * 4 + B * H * P * N * 4)
+        # multiply-adds the chunked algorithm needs (x2 for operations):
+        # C.B^T over the causal half once per (batch, chunk) -- it is
+        # shared by the heads -- and per (batch, head, chunk) the causal
+        # half of scores.X, C.h^T and the state update X^T.B
+        pairs = Q * (Q + 1) / 2
+        macs = (B * (S // Q) * pairs * N
+                + B * H * (S // Q) * (pairs * P + 2 * Q * P * N))
+        b_ms, by = bound(nbytes, 2 * macs, torch.float32)
+        run = lambda: ops.ssm_scan(X, Bm, Cm, dt, la, chunk=chunk)
+        return {"shape": {"B": B, "S": S, "H": H, "P": P, "N": N,
+                          "chunk": chunk, "fitted_chunk": Q},
+                "x_dtype": str(xdtype), "ms": time_ms(run, iters=5),
+                "eager_ms": eager_ms(run, iters=5),
+                "plain_ms": time_ms(lambda: ref.ssm_scan_chunked(
+                    X, Bm, Cm, dt, la, Q), iters=2) if plain else None,
+                "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+    shapes = [timed(4, 1024), timed(4, 1024, xdtype=torch.float32),
+              timed(1, 1024), timed(4, 1000), timed(4, 997, plain=False)]
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:73",
+            "max_abs_err": worst, "tolerance": {"f32": 1e-4, "bf16": 5e-2},
+            **{k: shapes[0][k] for k in ("ms", "eager_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "timed_shape": "X (4,1024,112,64) bf16, B/C (4,1024,64) f32, "
+                           "dt/la (4,1024,112) f32, chunk 256",
+            "library_note": "no single PyTorch call computes chunked SSD",
+            "checked": checked, "shapes": shapes}
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = [kernels_rmsnorm(gen), kernels_flash_attention(gen),
-               kernels_flash_decode(gen)]
+               kernels_flash_decode(gen), kernels_ssm_scan(gen)]
     emit("kernels", kernels=records)
     return records
 
@@ -450,41 +550,146 @@ def phase_agree() -> None:
          growth_f32_30_layers=growth)
 
 
-def phase_serve() -> dict:
+def phase_agree_zamba() -> None:
+    """zamba2-7b at full width (d_model 3584, 112 SSM heads, attention hd
+    112): hand-written kernels (attn_impl=pallas) against eager torch ops
+    (attn_impl=xla) on the same weights, prompt and next token — prefill
+    logits, one decode step's logits, and every cache tensor (SSM and
+    conv states, K and V dequantised).
+
+    Held at a cut depth that has a group and a remainder (3 Mamba2
+    blocks, the shared block after the 2nd): f32 within 1e-3, where the
+    two paths differ by summation order; bf16 within 0.1, or, where bf16
+    rounding alone moves the eager path further than that from its own
+    f32 result (the rounding is amplified through the blocks, as in
+    tests/test_torch_hybrid_bf16.py), within twice that distance.  At
+    full depth (81 blocks) the outputs are checked for shape and
+    finiteness and the difference is reported, not bounded."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.params import default_config
+    from repro_torch.models.layers import dequantize_kv, padded_vocab
+    from repro_torch.models.model import build_model
+
+    full = get_config("zamba2-7b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, full.vocab, (4, 1025), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    # every run decodes the same next token: with a decay of about 0.45
+    # per token the newest token dominates the SSM and conv states, so
+    # each run's own argmax (which bf16 rounding can flip) would compare
+    # states built from different inputs
+    tokens, next_tok = tokens[:, :1024], tokens[:, 1024:]
+
+    def run(model, master, compute, kv, impl, caches=True):
+        cfg = model.cfg
+        rt = default_config(compute_dtype=compute, kv_cache_dtype=kv,
+                            attn_impl=impl)
+        params = model.cast_params(master, rt)
+        with torch.no_grad():
+            logits, cache = model.prefill_fn(params, {"tokens": tokens}, rt,
+                                             max_seq=1088)
+            logits2, cache = model.decode_fn(params, cache, next_tok, rt)
+        torch.cuda.synchronize()
+        del params
+        g = cfg.n_layers // cfg.attn_every
+        H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        want = {"ssm": (g, cfg.attn_every, 4, H, 64, 64),
+                "conv": (g, cfg.attn_every, 4, 3, 2 * cfg.d_model)}
+        if tuple(logits.shape) != (4, 1, padded_vocab(cfg)) or \
+                logits.dtype != torch.float32 or cache["pos"] != 1025 or \
+                tuple(cache["kv"]["k"].shape) != (g, 4, 1088, 32, 112) or \
+                any(tuple(cache["groups"][k].shape) != v
+                    for k, v in want.items()):
+            raise AssertionError(f"agree zamba: bad output {logits.shape} "
+                                 f"{logits.dtype} {cache['kv']['k'].shape}")
+        out = {"prefill_logits": logits, "decode_logits": logits2}
+        if caches:
+            kvc = cache["kv"]
+            out.update({
+                f"{part}_{name}": cache[part][name]
+                for part in ("groups", "rem") if part in cache
+                for name in ("ssm", "conv")})
+            out["k_cache"] = dequantize_kv(kvc["k"], kvc.get("k_scale"),
+                                           torch.float32)
+            out["v_cache"] = dequantize_kv(kvc["v"], kvc.get("v_scale"),
+                                           torch.float32)
+        if not all(bool(torch.isfinite(t).all()) for t in out.values()):
+            raise AssertionError(f"agree zamba: non-finite output ({impl})")
+        return out
+
+    cut = build_model(full.replace(n_layers=3, attn_every=2))
+    master = cut.init(0, device="cuda")
+    eager32 = run(cut, master, "float32", "float32", "xla")
+    out = {}
+    for compute, kv in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                        ("bfloat16", "int8")):
+        kernel = run(cut, master, compute, kv, "pallas")
+        eager = eager32 if compute == "float32" else \
+            run(cut, master, compute, kv, "xla")
+        rels = {n: _rel(kernel[n], eager[n]) for n in eager}
+        if compute == "float32":
+            tols = {n: 1e-3 for n in rels}
+        else:
+            drift = {n: _rel(eager[n], eager32[n]) for n in rels}
+            tols = {n: max(0.1, 2 * drift[n]) for n in rels}
+        key = f"3 layers (2+shared+1) {compute}/{kv}"
+        out[key] = {n: {"rel": rels[n], "tolerance": tols[n]} for n in rels}
+        bad = {n: r for n, r in rels.items() if r > tols[n]}
+        if bad:
+            raise AssertionError(f"agree zamba {key}: relative differences "
+                                 f"{bad} over {tols}")
+    del master, eager32, kernel, eager
+    torch.cuda.empty_cache()
+
+    model = build_model(full)
+    master = model.init(0, device="cuda")
+    runs = {impl: run(model, master, "bfloat16", "bfloat16", impl,
+                      caches=False) for impl in ("pallas", "xla")}
+    out["81 layers bfloat16/bfloat16"] = {
+        n: {"rel": _rel(runs["pallas"][n], runs["xla"][n]),
+            "tolerance": None} for n in runs["xla"]}
+    del master, runs
+    torch.cuda.empty_cache()
+    emit("agree", arch="zamba2-7b", measure="||pallas - xla|| / ||xla||",
+         results=out)
+
+
+def phase_serve(arch: str, gen_tokens: int) -> dict:
     from repro_torch.launch import serve
     expect = {"prefills": 0, "decode_steps": 0}
     for kv in ("bfloat16", "int8"):
         t0 = time.time()
-        rc = serve.main(["--arch", "smollm-135m", "--batch", "4",
-                         "--prompt-len", "1024", "--gen-tokens", "64",
-                         "--kv-dtype", kv, "--attn-impl", "pallas"])
+        rc = serve.main(["--arch", arch, "--batch", "4",
+                         "--prompt-len", "1024", "--gen-tokens",
+                         str(gen_tokens), "--kv-dtype", kv,
+                         "--attn-impl", "pallas"])
         if rc != 0:
             raise AssertionError(f"serve.main returned {rc}")
         expect["prefills"] += 1
-        expect["decode_steps"] += 63
-        emit("serve", kv_cache=kv, seconds=round(time.time() - t0, 3))
+        expect["decode_steps"] += gen_tokens - 1
+        torch.cuda.empty_cache()
+        emit("serve", arch=arch, kv_cache=kv,
+             seconds=round(time.time() - t0, 3))
     return expect
 
 
-def phase_scheduler() -> dict:
+def phase_scheduler(arch: str, spec, max_seq: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.params import default_config
+    from repro_torch.kernels.tiling import fit_block
     from repro_torch.models.model import build_model
     from repro_torch.serving import traffic
     from repro_torch.serving.scheduler import BatchScheduler, Request
 
-    # the registered *_tiny traces are sized for CPU tests; this one has
-    # prompts and budgets a card is used for
-    spec = traffic.TraceSpec(
-        name="poisson_smoke", pattern="poisson", n_requests=16,
-        mean_rate=4.0, seed=2024, tenants=(
-            traffic.Tenant("chat", 0.6, (128, 512), (32, 64)),
-            traffic.Tenant("doc", 0.4, (512, 1024), (16, 48))))
     trace = traffic.generate(spec)
-    cfg = get_config("smollm-135m")
+    n = len(trace.requests)
+    cfg = get_config(arch)
     rt = default_config(compute_dtype="bfloat16", kv_cache_dtype="int8",
                         attn_impl="pallas")
-    wave_size, max_seq = 4, 2048
+    wave_size = 4
+    # the f32 master tree lives only as this argument: it is dropped
+    # once the scheduler has cast it
     sched = BatchScheduler(cfg, rt, build_model(cfg).init(0, device="cuda"),
                            wave_size=wave_size, max_seq=max_seq)
     for r in trace.requests:
@@ -494,24 +699,30 @@ def phase_scheduler() -> dict:
     done = sched.run_until_drained()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    if len(done) != 16:
-        raise AssertionError(f"scheduler: {len(done)} of 16 requests done")
+    if len(done) != n:
+        raise AssertionError(f"scheduler: {len(done)} of {n} requests done")
     expect = {"prefills": 0, "decode_steps": 0}
-    for i in range(0, 16, wave_size):
+    waves = []
+    for i in range(0, n, wave_size):
         wave = trace.requests[i:i + wave_size]
+        S = max(r.prompt_len for r in wave)
         expect["prefills"] += 1
         expect["decode_steps"] += min(
-            max(r.max_new_tokens for r in wave) - 1,
-            max_seq - max(r.prompt_len for r in wave) - 1)
+            max(r.max_new_tokens for r in wave) - 1, max_seq - S - 1)
+        # the SSM chunk the kernel path fits to this wave's padded length
+        waves.append({"padded_prompt": S, "ssm_chunk": fit_block(
+            cfg.ssm_chunk, S) if cfg.family == "hybrid" else None})
     for req, r in zip(done, trace.requests):
         if len(req.generated) != r.max_new_tokens or not all(
-                0 <= t < 49152 + 512 for t in req.generated):
+                0 <= t < cfg.vocab + 512 for t in req.generated):
             raise AssertionError(f"scheduler: request {req.rid} generated "
                                  f"{len(req.generated)} of "
                                  f"{r.max_new_tokens} tokens")
-    emit("scheduler", trace=trace.key(), wall_s=round(wall, 3),
-         waves=expect["prefills"], decode_steps=expect["decode_steps"],
+    emit("scheduler", arch=arch, trace=trace.key(), wall_s=round(wall, 3),
+         waves=waves, decode_steps=expect["decode_steps"],
          summary=sched.metrics.summary())
+    del sched
+    torch.cuda.empty_cache()
     return expect
 
 
@@ -519,27 +730,79 @@ def counters() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.rmsnorm import ops as rms
-    return {"rmsnorm": rms, "flash_attention": fa, "flash_decode": fd}
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    return {"rmsnorm": rms, "flash_attention": fa, "flash_decode": fd,
+            "ssm_scan": ssm}
 
 
-def phase_launches(expects: list, n_layers: int = 30) -> dict:
+def launches_per_unit(cfg) -> tuple:
+    """Kernel launches of one prefill and of one decode step, derived
+    from the model's path."""
+    if cfg.family == "dense":
+        # prefill norms ln1 twice a block (once for the K/V that go to the
+        # cache, once inside the block), ln2 once, and the stack once at
+        # the end; a decode step norms ln1 and ln2 once each and the stack
+        n = cfg.n_layers
+        return ({"rmsnorm": 3 * n + 1, "flash_attention": n,
+                 "flash_decode": 0, "ssm_scan": 0},
+                {"rmsnorm": 2 * n + 1, "flash_attention": 0,
+                 "flash_decode": n, "ssm_scan": 0})
+    # hybrid: every Mamba2 block norms its input and its gated output and
+    # scans once in prefill; each of the g shared-block invocations norms
+    # ln1 twice (cached K/V, then inside the block) and ln2 once in
+    # prefill, ln1 and ln2 once in a decode step; the stack once at the end
+    n, g = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    return ({"rmsnorm": 2 * n + 3 * g + 1, "flash_attention": g,
+             "flash_decode": 0, "ssm_scan": n},
+            {"rmsnorm": 2 * n + 2 * g + 1, "flash_attention": 0,
+             "flash_decode": g, "ssm_scan": 0})
+
+
+def phase_launches(arch: str, expects: list) -> dict:
+    from repro_torch.configs import get_config
     prefills = sum(e["prefills"] for e in expects)
     steps = sum(e["decode_steps"] for e in expects)
-    # prefill norms ln1 twice a block (once for the K/V that go to the
-    # cache, once inside the block), ln2 once, and the stack once at the
-    # end; a decode step norms ln1 and ln2 once each and the stack once
-    want = {"rmsnorm": (3 * n_layers + 1) * prefills
-                       + (2 * n_layers + 1) * steps,
-            "flash_attention": n_layers * prefills,
-            "flash_decode": n_layers * steps}
+    per_prefill, per_step = launches_per_unit(get_config(arch))
+    want = {k: per_prefill[k] * prefills + per_step[k] * steps
+            for k in per_prefill}
     got = {name: mod.launches for name, mod in counters().items()}
-    emit("launches", counted=got, expected=want, prefills=prefills,
-         decode_steps=steps)
+    emit("launches", arch=arch, counted=got, expected=want,
+         prefills=prefills, decode_steps=steps, per_prefill=per_prefill,
+         per_decode_step=per_step)
     for name in want:
-        if got[name] < 1 or got[name] != want[name]:
-            raise AssertionError(f"launches: {name} counted {got[name]}, "
-                                 f"the path implies {want[name]}")
+        if got[name] != want[name] or (want[name] > 0 and got[name] < 1):
+            raise AssertionError(f"launches {arch}: {name} counted "
+                                 f"{got[name]}, the path implies "
+                                 f"{want[name]}")
     return got
+
+
+def main_paths() -> list:
+    """(arch, run function) of each main path: serve CLI runs, then a trace
+    through the BatchScheduler."""
+    from repro_torch.serving import traffic
+
+    # the registered *_tiny traces are sized for CPU tests; these have
+    # prompts and budgets a card is used for
+    smollm_trace = traffic.TraceSpec(
+        name="poisson_smoke", pattern="poisson", n_requests=16,
+        mean_rate=4.0, seed=2024, tenants=(
+            traffic.Tenant("chat", 0.6, (128, 512), (32, 64)),
+            traffic.Tenant("doc", 0.4, (512, 1024), (16, 48))))
+    # two waves padded to ragged prompt lengths (the chunk fit at work)
+    zamba_trace = traffic.TraceSpec(
+        name="poisson_smoke_hybrid", pattern="poisson", n_requests=8,
+        mean_rate=4.0, seed=2025, tenants=(
+            traffic.Tenant("chat", 0.5, (128, 1024), (8, 24)),
+            traffic.Tenant("doc", 0.5, (512, 1024), (8, 16))))
+    return [
+        ("smollm-135m", lambda: [phase_serve("smollm-135m", 64),
+                                 phase_scheduler("smollm-135m", smollm_trace,
+                                                 2048)]),
+        ("zamba2-7b", lambda: [phase_serve("zamba2-7b", 32),
+                               phase_scheduler("zamba2-7b", zamba_trace,
+                                               1088)]),
+    ]
 
 
 def main(argv=None) -> int:
@@ -562,14 +825,18 @@ def main(argv=None) -> int:
     phase_build(args.ptxas)
     records = phase_kernels()
     phase_agree()
-    # the main path: every launch counter starts at 0 here and is read
-    # right after the scheduler drains
-    for mod in counters().values():
-        mod.launches = 0
-    expects = [phase_serve(), phase_scheduler()]
-    got = phase_launches(expects)
+    phase_agree_zamba()
+    # the main paths: every launch counter is set to 0 just before each
+    # path and read right after it
+    by_path = {}
+    for arch, drive in main_paths():
+        for mod in counters().values():
+            mod.launches = 0
+        by_path[arch] = phase_launches(arch, drive())
     for rec in records:
-        rec["launches"] = got[rec["name"]]
+        rec["launches_by_path"] = {a: got[rec["name"]]
+                                   for a, got in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     print(json.dumps({"kernels": records}), flush=True)
     emit("done", seconds=round(time.time() - t0, 1))
     print(smi, flush=True)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path, on one GPU.
 
-    python3 scripts/profile_torch_serve.py [--out DIR]
+    python3 scripts/profile_torch_serve.py [--arch ARCH] [--out DIR]
 
-Serves smollm-135m (full width and depth, random weights from a seed,
-bf16 compute, hand-written kernels) at batch 4, prompt 1024: times one
+Serves ``--arch`` (default smollm-135m; zamba2-7b for the hybrid path) at
+full width and depth, random weights from a seed, bf16 compute,
+hand-written kernels, at batch 4, prompt 1024: times one
 prefill and a window of decode steps on the host clock (ending in a
 synchronise), then traces the same work with ``torch.profiler`` and
 prints, for the prefill and for the decode window, the device-busy share
@@ -28,6 +29,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--out", default=None,
                     help="directory for profile.json (default: print only)")
     ap.add_argument("--kv-dtype", default="bfloat16")
@@ -46,10 +48,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    cfg = get_config("smollm-135m")
+    cfg = get_config(args.arch)
     rt = default_config(compute_dtype="bfloat16",
                         kv_cache_dtype=args.kv_dtype, attn_impl="pallas")
     model = build_model(cfg)
+    # the f32 master tree is dropped once it has been cast
     params = model.cast_params(model.init(0, device="cuda"), rt)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -105,7 +108,8 @@ def main(argv=None) -> int:
     if args.out:
         out = pathlib.Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "profile.json").write_text(json.dumps(report, indent=1) + "\n")
+        (out / f"profile_{cfg.name}_{args.kv_dtype}.json").write_text(
+            json.dumps(report, indent=1) + "\n")
     return 0
 
 

@@ -22,13 +22,18 @@
 // causal limit.  A KV tile (block_kv rows of K and of V, in their stored
 // dtype) is staged through shared memory once per pass and read by every
 // thread of the block.  The q rows, (m, l) and acc live in registers: a
-// query row is split over hd/16 neighbouring lanes (16 dims each, the
-// dot product finished with shuffles), and each thread carries 2 rows.
-// 256 threads therefore cover a pass of 8192/hd query rows; a logical
-// q tile larger than that is walked in such passes.  Scores are formed 8
-// keys at a time so acc is rescaled once per 8 keys.  Ragged edges are
-// masked here: any S >= 1 and any tile size >= 1 is right.  Warps whose
-// rows all lie before a chunk of keys skip it (causal).
+// query row is split over TPR neighbouring lanes (16 dims each, the dot
+// product finished with xor shuffles), and each thread carries 2 rows.
+// TPR is hd/16 rounded up to a power of two, so the shuffles pair lanes
+// of one row at every head dim that is a multiple of 16 up to 256: at hd
+// 112 a row has 8 lanes, of which the 8th holds dims 112..127, which do
+// not exist -- such a lane loads nothing, contributes 0 to the dot
+// product and stores nothing (hd 192: 16 lanes, 4 idle).  256 threads
+// cover a pass of 512/TPR query rows; a logical q tile larger than that
+// is walked in such passes.  Scores are formed 8 keys at a time so acc
+// is rescaled once per 8 keys.  Ragged edges are masked here: any S >= 1
+// and any tile size >= 1 is right.  Warps whose rows all lie before a
+// chunk of keys skip it (causal).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,12 +85,19 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
   }
 }
 
+// Lanes per query row: hd/16 rounded up to a power of two.
+__host__ __device__ constexpr int lanes_per_row(int hd) {
+  int t = 1;
+  while (t * kDims < hd) t *= 2;
+  return t;
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int S, int H,
              int block_q, int block_kv, int causal, float scale) {
-  constexpr int TPR = HD / kDims;            // lanes per query row
+  constexpr int TPR = lanes_per_row(HD);     // lanes per query row
   constexpr int GROUPS = kThreads / TPR;     // row groups per block
   constexpr int PASS = GROUPS * kRows;       // query rows per pass
   constexpr int VPR = HD * sizeof(T) / 16;   // 16-byte vectors per row
@@ -97,6 +109,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int slice = tid % TPR;
   const int group = tid / TPR;
+  const bool active = slice * kDims < HD;    // this lane's dims exist
   const int warp = tid >> 5;
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t row_stride = (size_t)H * HD;
@@ -122,7 +135,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < kRows; ++r) {
       m[r] = kNegInf;
       l[r] = 0.f;
-      if (r0 + r < pass_end) {
+      if (r0 + r < pass_end && active) {
         load16(qb + (size_t)(r0 + r) * row_stride + slice * kDims, qf[r]);
       } else {
 #pragma unroll
@@ -157,7 +170,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < kChunk; ++c) {
           float s0 = 0.f, s1 = 0.f;
-          if (c < cnt) {
+          if (c < cnt && active) {
             float kf[kDims];
             load16(ks + (size_t)(j0 + c) * HD + slice * kDims, kf);
 #pragma unroll
@@ -196,7 +209,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int c = 0; c < kChunk; ++c) {
-          if (c < cnt) {
+          if (c < cnt && active) {
             float vf[kDims];
             load16(vs + (size_t)(j0 + c) * HD + slice * kDims, vf);
 #pragma unroll
@@ -211,7 +224,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      if (r0 + r < pass_end) {
+      if (r0 + r < pass_end && active) {
         const float inv = 1.f / fmaxf(l[r], 1e-20f);
         float out[kDims];
 #pragma unroll
@@ -240,20 +253,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// hd: any multiple of 16 up to 256, each its own instantiation.
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int hd, int block_q,
                         int block_kv, int causal, cudaStream_t stream) {
   switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, block_q, block_kv, causal,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, block_q, block_kv, causal,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, block_q, block_kv, causal,
-                            stream);
+#define RT_HD(D)                                                          \
+  case D:                                                                 \
+    return launch<T, D>(q, k, v, o, B, S, H, block_q, block_kv, causal, \
+                        stream);
+    RT_HD(16) RT_HD(32) RT_HD(48) RT_HD(64) RT_HD(80) RT_HD(96) RT_HD(112)
+    RT_HD(128) RT_HD(144) RT_HD(160) RT_HD(176) RT_HD(192) RT_HD(208)
+    RT_HD(224) RT_HD(240) RT_HD(256)
+#undef RT_HD
     default:
       return cudaErrorInvalidValue;
   }

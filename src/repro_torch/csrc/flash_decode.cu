@@ -26,10 +26,15 @@
 // here the KV tiles run as parallel blocks -- B * Hkv blocks alone would
 // leave most of the SMs idle -- each writing a partial (m, l, acc), and a
 // second small kernel merges the partials.  Loads are 16 bytes per lane:
-// a row of hd elements is spread over hd*sizeof/16 neighbouring lanes, a
-// warp reads several rows per instruction, and two rows per lane group
-// are in flight.  `length` is a plain integer argument: the cache
-// position lives on the host, so no step reads it back from the device.
+// a row of hd elements is spread over LPR neighbouring lanes, LPR being
+// the row's count of 16-byte vectors rounded up to a power of two (so
+// the xor shuffles pair lanes of one row) and capped at 32; an f32 row
+// of more than 128 dims gives each lane two vectors (VPL = 2).  At hd
+// 112 a bf16 row is 14 vectors on 16 lanes, an int8 row 7 on 8 lanes:
+// a vector past hd is never loaded, holds 0 and is never stored.  A warp
+// reads several rows per instruction, and two rows per lane group are
+// in flight.  `length` is a plain integer argument: the cache position
+// lives on the host, so no step reads it back from the device.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +45,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kHeads = 4;    // query heads of one GQA group per block
 constexpr int kUnroll = 2;   // cache rows in flight per lane group
+constexpr int kMaxHD = 256;  // largest head dim a row may have
 
 template <typename KV> struct Elems { static constexpr int n = 16 / sizeof(KV); };
 
@@ -63,7 +69,7 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* out,
 }
 
 // Partial attention of up to kHeads query heads over one KV tile.
-template <typename KV, int HD>
+template <typename KV, int LPR, int VPL>
 __global__ void __launch_bounds__(32 * kWarps)
 decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
                       const KV* __restrict__ k, const KV* __restrict__ v,
@@ -71,13 +77,15 @@ decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
                       const float* __restrict__ v_scale,
                       float* __restrict__ part_m, float* __restrict__ part_l,
                       float* __restrict__ part_acc, int Smax, int H, int Hkv,
-                      int length, int block_kv, int n_tiles, float scale) {
-  constexpr int EPL = Elems<KV>::n;   // elements per lane (one 16-byte load)
-  constexpr int LPR = HD / EPL;       // lanes per cache row
+                      int HD, int length, int block_kv, int n_tiles,
+                      float scale) {
+  constexpr int EPL = Elems<KV>::n;   // elements per 16-byte vector
+  constexpr int EPT = EPL * VPL;      // elements per lane
   constexpr int RPW = 32 / LPR;       // rows per warp per load
   constexpr int RPI = kWarps * RPW;   // rows per block per load
   constexpr bool kQuant = sizeof(KV) == 1;
-  static_assert(LPR >= 1 && LPR <= 32, "row must fit a warp");
+  static_assert(LPR >= 1 && LPR <= 32 && (LPR & (LPR - 1)) == 0,
+                "a row is a power-of-two lane group within a warp");
 
   const int n_rep = H / Hkv;
   const int n_chunks = (n_rep + kHeads - 1) / kHeads;
@@ -90,65 +98,84 @@ decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane / LPR, sl = lane % LPR;
+  // first dim of this lane's vector u; the vector exists if dim0 < HD
+  int dim0[VPL];
+  bool on[VPL];
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    dim0[u] = (u * LPR + sl) * EPL;
+    on[u] = dim0[u] < HD;
+  }
 
-  float qf[kHeads][EPL], acc[kHeads][EPL], m[kHeads], l[kHeads];
+  float qf[kHeads][EPT], acc[kHeads][EPT], m[kHeads], l[kHeads];
 #pragma unroll
   for (int hh = 0; hh < kHeads; ++hh) {
     m[hh] = kNegInf;
     l[hh] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      float val = 0.f;
-      if (hh < nh) {
-        const size_t idx = ((size_t)b * H + h0 + hh) * HD + sl * EPL + e;
-        val = q_is_bf16
-                  ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[idx])
-                  : static_cast<const float*>(q)[idx];
+    for (int u = 0; u < VPL; ++u) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        float val = 0.f;
+        if (hh < nh && on[u]) {
+          const size_t idx = ((size_t)b * H + h0 + hh) * HD + dim0[u] + e;
+          val = q_is_bf16
+                    ? __bfloat162float(
+                          static_cast<const __nv_bfloat16*>(q)[idx])
+                    : static_cast<const float*>(q)[idx];
+        }
+        qf[hh][u * EPL + e] = val * scale;
+        acc[hh][u * EPL + e] = 0.f;
       }
-      qf[hh][e] = val * scale;
-      acc[hh][e] = 0.f;
     }
   }
 
   const int start = tile * block_kv;
   const int end = min(length, start + block_kv);
   const size_t row_stride = (size_t)Hkv * HD;              // elements
-  const KV* kb = k + ((size_t)b * Smax * Hkv + kvh) * HD + sl * EPL;
-  const KV* vb = v + ((size_t)b * Smax * Hkv + kvh) * HD + sl * EPL;
+  const KV* kb = k + ((size_t)b * Smax * Hkv + kvh) * HD;
+  const KV* vb = v + ((size_t)b * Smax * Hkv + kvh) * HD;
   const size_t sc_base = (size_t)b * Smax * Hkv + kvh;     // + j * Hkv
 
   // `base` is uniform over the warp, so every lane runs every shuffle
   for (int base = start + warp * RPW; base < end; base += RPI * kUnroll) {
-    uint4 kraw[kUnroll], vraw[kUnroll];
+    uint4 kraw[kUnroll][VPL], vraw[kUnroll][VPL];
     float ksc[kUnroll], vsc[kUnroll];
     bool live[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + grp + u * RPI;
-      live[u] = j < end;
-      kraw[u] = make_uint4(0, 0, 0, 0);
-      vraw[u] = make_uint4(0, 0, 0, 0);
-      ksc[u] = 1.f;
-      vsc[u] = 1.f;
-      if (live[u]) {
-        kraw[u] = *reinterpret_cast<const uint4*>(kb + (size_t)j * row_stride);
-        vraw[u] = *reinterpret_cast<const uint4*>(vb + (size_t)j * row_stride);
-        if (kQuant) {
-          ksc[u] = k_scale[sc_base + (size_t)j * Hkv];
-          vsc[u] = v_scale[sc_base + (size_t)j * Hkv];
+    for (int r = 0; r < kUnroll; ++r) {
+      const int j = base + grp + r * RPI;
+      live[r] = j < end;
+      ksc[r] = 1.f;
+      vsc[r] = 1.f;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        kraw[r][u] = make_uint4(0, 0, 0, 0);
+        vraw[r][u] = make_uint4(0, 0, 0, 0);
+        if (live[r] && on[u]) {
+          const size_t off = (size_t)j * row_stride + dim0[u];
+          kraw[r][u] = *reinterpret_cast<const uint4*>(kb + off);
+          vraw[r][u] = *reinterpret_cast<const uint4*>(vb + off);
         }
+      }
+      if (kQuant && live[r]) {
+        ksc[r] = k_scale[sc_base + (size_t)j * Hkv];
+        vsc[r] = v_scale[sc_base + (size_t)j * Hkv];
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float kf[EPL], vf[EPL];
-      unpack(kraw[u], kf, static_cast<const KV*>(nullptr));
-      unpack(vraw[u], vf, static_cast<const KV*>(nullptr));
+    for (int r = 0; r < kUnroll; ++r) {
+      float kf[EPT], vf[EPT];
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        unpack(kraw[r][u], kf + u * EPL, static_cast<const KV*>(nullptr));
+        unpack(vraw[r][u], vf + u * EPL, static_cast<const KV*>(nullptr));
+      }
       if (kQuant) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          kf[e] *= ksc[u];
-          vf[e] *= vsc[u];
+        for (int e = 0; e < EPT; ++e) {
+          kf[e] *= ksc[r];
+          vf[e] *= vsc[r];
         }
       }
 #pragma unroll
@@ -156,18 +183,18 @@ decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
         if (hh < nh) {   // uniform over the block
           float s = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) s = fmaf(qf[hh][e], kf[e], s);
+          for (int e = 0; e < EPT; ++e) s = fmaf(qf[hh][e], kf[e], s);
 #pragma unroll
           for (int off = LPR / 2; off > 0; off >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, off);
-          if (live[u]) {
+          if (live[r]) {
             const float m_new = fmaxf(m[hh], s);
             const float corr = expf(m[hh] - m_new);
             const float p = expf(s - m_new);
             l[hh] = l[hh] * corr + p;
             m[hh] = m_new;
 #pragma unroll
-            for (int e = 0; e < EPL; ++e)
+            for (int e = 0; e < EPT; ++e)
               acc[hh][e] = fmaf(p, vf[e], acc[hh][e] * corr);
           }
         }
@@ -177,7 +204,7 @@ decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
 
   // merge the lane groups of a warp (they hold the same dims, other rows)
   __shared__ float sm_m[kWarps][kHeads], sm_l[kWarps][kHeads];
-  __shared__ float sm_acc[kWarps][kHeads][HD];
+  __shared__ float sm_acc[kWarps][kHeads][kMaxHD];
 #pragma unroll
   for (int hh = 0; hh < kHeads; ++hh) {
 #pragma unroll
@@ -189,7 +216,7 @@ decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
       l[hh] = l[hh] * ca + l_o * cb;
       m[hh] = m_new;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
+      for (int e = 0; e < EPT; ++e) {
         const float a_o = __shfl_xor_sync(0xffffffffu, acc[hh][e], off);
         acc[hh][e] = acc[hh][e] * ca + a_o * cb;
       }
@@ -200,14 +227,20 @@ decode_partial_kernel(const void* __restrict__ q, int q_is_bf16,
         sm_l[warp][hh] = l[hh];
       }
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][hh][sl * EPL + e] = acc[hh][e];
+      for (int u = 0; u < VPL; ++u) {
+        if (on[u]) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            sm_acc[warp][hh][dim0[u] + e] = acc[hh][u * EPL + e];
+        }
+      }
     }
   }
   __syncthreads();
 
-  // merge the warps; thread d writes dim d of this tile's partial result
-  const int d = threadIdx.x;
-  if (d < HD) {
+  // merge the warps; thread d writes dim d (and d + 128) of this tile's
+  // partial result
+  for (int d = threadIdx.x; d < HD; d += 32 * kWarps) {
     for (int hh = 0; hh < nh; ++hh) {
       float mm = sm_m[0][hh];
 #pragma unroll
@@ -250,28 +283,31 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_m,
   out[bh * hd + d] = aa / fmaxf(ll, 1e-20f);
 }
 
-template <typename KV, int HD>
+template <typename KV, int LPR, int VPL>
 cudaError_t launch(const void* q, int q_is_bf16, const void* k, const void* v,
                    const void* k_scale, const void* v_scale, float* part_m,
                    float* part_l, float* part_acc, float* out, int B, int Smax,
-                   int H, int Hkv, int length, int block_kv, int n_tiles,
-                   cudaStream_t stream) {
+                   int H, int Hkv, int hd, int length, int block_kv,
+                   int n_tiles, cudaStream_t stream) {
   const int n_rep = H / Hkv;
   const int n_chunks = (n_rep + kHeads - 1) / kHeads;
   const dim3 grid(n_tiles, Hkv * n_chunks, B);
-  const float scale = 1.0f / sqrtf((float)HD);
-  decode_partial_kernel<KV, HD><<<grid, 32 * kWarps, 0, stream>>>(
+  const float scale = 1.0f / sqrtf((float)hd);
+  decode_partial_kernel<KV, LPR, VPL><<<grid, 32 * kWarps, 0, stream>>>(
       q, q_is_bf16, static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      part_m, part_l, part_acc, Smax, H, Hkv, length, block_kv, n_tiles,
+      part_m, part_l, part_acc, Smax, H, Hkv, hd, length, block_kv, n_tiles,
       scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<<<B * H, HD, 0, stream>>>(part_m, part_l, part_acc, out,
-                                                n_tiles, HD);
+  decode_merge_kernel<<<B * H, hd, 0, stream>>>(part_m, part_l, part_acc, out,
+                                                n_tiles, hd);
   return cudaGetLastError();
 }
 
+// hd: any multiple of 16 up to 256.  The lane group of a row is the
+// row's count of 16-byte vectors rounded up to a power of two; only the
+// group sizes a cache type can need are instantiated.
 template <typename KV>
 cudaError_t dispatch_hd(const void* q, int q_is_bf16, const void* k,
                         const void* v, const void* k_scale,
@@ -279,22 +315,30 @@ cudaError_t dispatch_hd(const void* q, int q_is_bf16, const void* k,
                         float* part_acc, float* out, int B, int Smax, int H,
                         int Hkv, int hd, int length, int block_kv, int n_tiles,
                         cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<KV, 32>(q, q_is_bf16, k, v, k_scale, v_scale, part_m,
-                            part_l, part_acc, out, B, Smax, H, Hkv, length,
-                            block_kv, n_tiles, stream);
-    case 64:
-      return launch<KV, 64>(q, q_is_bf16, k, v, k_scale, v_scale, part_m,
-                            part_l, part_acc, out, B, Smax, H, Hkv, length,
-                            block_kv, n_tiles, stream);
-    case 128:
-      return launch<KV, 128>(q, q_is_bf16, k, v, k_scale, v_scale, part_m,
-                             part_l, part_acc, out, B, Smax, H, Hkv, length,
-                             block_kv, n_tiles, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if (hd < 16 || hd > kMaxHD || hd % 16 != 0) return cudaErrorInvalidValue;
+  constexpr int EPL = Elems<KV>::n;
+  const int vecs = hd / EPL;   // 16-byte vectors in a row
+#define RT_DECODE(LPR, VPL)                                                  \
+  return launch<KV, LPR, VPL>(q, q_is_bf16, k, v, k_scale, v_scale, part_m,  \
+                              part_l, part_acc, out, B, Smax, H, Hkv, hd,    \
+                              length, block_kv, n_tiles, stream)
+  if constexpr (EPL == 16) {
+    if (vecs <= 1) RT_DECODE(1, 1);
   }
+  if constexpr (EPL >= 8) {
+    if (vecs <= 2) RT_DECODE(2, 1);
+  }
+  if (vecs <= 4) RT_DECODE(4, 1);
+  if (vecs <= 8) RT_DECODE(8, 1);
+  if (vecs <= 16) RT_DECODE(16, 1);
+  if constexpr (EPL <= 8) {
+    if (vecs <= 32) RT_DECODE(32, 1);
+  }
+  if constexpr (EPL == 4) {
+    if (vecs <= 64) RT_DECODE(32, 2);
+  }
+#undef RT_DECODE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -39,6 +39,9 @@ _SIGNATURES: Dict[str, List] = {
     # stream
     "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # X, Bm, Cm, dt, la, Y, h_final, B, S, H, P, N, chunk, x_is_bf16, stream
+    "rt_ssm_scan": [_P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -13,7 +13,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.tiling import fit_block
 
 SMEM_LIMIT = 232_448      # dynamic shared memory one block can have
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = tuple(range(16, 257, 16))   # every multiple of 16 up to 256
 launches = 0              # kernel launches made by this wrapper
 
 
@@ -45,8 +45,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
             raise ValueError(f"{name} must match q: {tuple(q.shape)} "
                              f"{q.dtype} on {q.device}")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel runs hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+        raise ValueError("flash_attention kernel runs hd a multiple of 16 "
+                         f"up to 256, got {hd}")
     if S < 1 or B < 1:
         raise ValueError("flash_attention kernel needs B >= 1 and S >= 1")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

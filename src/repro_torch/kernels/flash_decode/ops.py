@@ -13,7 +13,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.tiling import fit_block
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = tuple(range(16, 257, 16))   # every multiple of 16 up to 256
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = 0    # kernel launches (partial + merge pair) made by this wrapper
 
@@ -47,8 +47,9 @@ def flash_decode(q, k_cache, v_cache, length, k_scale=None, v_scale=None,
         raise TypeError(f"flash_decode kernel takes f32/bf16/int8 caches of "
                         f"one dtype, got {k_cache.dtype} / {v_cache.dtype}")
     if hd not in HEAD_DIMS or H % Hkv:
-        raise ValueError(f"flash_decode kernel runs hd in {HEAD_DIMS} and "
-                         f"H a multiple of Hkv, got hd={hd}, H={H}, Hkv={Hkv}")
+        raise ValueError("flash_decode kernel runs hd a multiple of 16 up "
+                         f"to 256 and H a multiple of Hkv, got hd={hd}, "
+                         f"H={H}, Hkv={Hkv}")
     if not 1 <= length <= S:
         raise ValueError(f"flash_decode: length {length} outside [1, {S}]")
     quant = k_cache.dtype == torch.int8

@@ -90,6 +90,11 @@ def stacked(n: int, spec_tree):
         spec_tree)
 
 
+# parameters the reference reads in their master dtype, never cast to the
+# compute dtype: Mamba2's dt bias and log decay (mamba2._gates)
+UNCAST = frozenset({"dt_bias", "A_log"})
+
+
 def cast_params(params, spec_tree, rt: TunableConfig):
     """The parameter tree with every matrix cast to the compute dtype.
 
@@ -97,10 +102,12 @@ def cast_params(params, spec_tree, rt: TunableConfig):
     eagerly that would re-cast the whole model per step.  The serving
     entry points therefore call this once when the model is placed on
     the device; ``cast`` at the point of use is then free, and the
-    numbers are the same.  Norm scales (``"ones"`` specs) stay as they
-    are: the reference hands them to the norm uncast."""
+    numbers are the same.  Norm scales (``"ones"`` specs) and the
+    parameters named in ``UNCAST`` stay as they are: the reference hands
+    them on uncast."""
     if isinstance(spec_tree, dict):
-        return {k: cast_params(params[k], spec_tree[k], rt) for k in params}
+        return {k: params[k] if k in UNCAST else
+                cast_params(params[k], spec_tree[k], rt) for k in params}
     return params if spec_tree.scale == "ones" else cast(params, rt)
 
 

@@ -2,8 +2,8 @@
 
 ``build_model(cfg)`` returns a :class:`Model` whose functions close over
 the architecture config; ``input_specs`` gives the shapes of every
-workload cell's inputs.  Only the ``dense`` family is ported so far; the
-others raise (ROADMAP.md, queue A).
+workload cell's inputs.  The ``dense`` and ``hybrid`` families are
+ported so far; the others raise (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -14,11 +14,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.params import TunableConfig
-from repro_torch.models import layers as L, transformer
+from repro_torch.models import layers as L, transformer, zamba
 from repro_torch.runtime.remat import torch_dtype
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "hybrid": zamba,
 }
 
 

@@ -95,7 +95,8 @@ class BatchScheduler:
         self.device = resolve_device(device)
         self.model: Model = build_model(cfg)
         # placed on the device and cast to the compute dtype once, here,
-        # instead of at every use inside the step functions
+        # instead of at every use inside the step functions; only the cast
+        # tree is kept, so a master tree the caller drops is freed
         self.params = self.model.cast_params(
             tree_map(lambda t: t.to(self.device), params), rt)
         self.wave_size = wave_size

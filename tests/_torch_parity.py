@@ -31,3 +31,19 @@ def t2n(x):
 def shared_params(jax_params):
     """(reference params, port params) holding the same numbers."""
     return jax_params, from_jax_params(jax.tree.map(np.asarray, jax_params))
+
+
+def rel_close(t, j, tol):
+    """max |t - j| <= tol * max |j|: the tensor's scale, not each element's."""
+    a, b = t2n(t), j2n(j)
+    assert a.shape == b.shape
+    scale = max(float(np.abs(b).max()), 1e-6)
+    assert float(np.abs(a - b).max()) / scale <= tol, \
+        (float(np.abs(a - b).max()), scale)
+
+
+def fro_close(t, j, tol):
+    """||t - j|| / ||j|| <= tol (relative Frobenius norm)."""
+    a, b = t2n(t), j2n(j)
+    assert a.shape == b.shape
+    assert float(np.linalg.norm(a - b) / np.linalg.norm(b)) <= tol

@@ -1,10 +1,10 @@
-"""The port's plain versions of the three kernels against the reference's
+"""The port's plain versions of the four kernels against the reference's
 ``ops`` wrappers (Pallas in interpret mode on the CPU) and ``ref.py``
 oracles, on the same numpy inputs.  Tolerances are those of
 tests/test_kernels.py: f32 2e-5 (summation order), bf16 / int8 2e-2
-(one bf16 rounding of the output).  On the CPU the port's wrappers use
-their plain versions; the CUDA kernels are held against the same plain
-versions on the card by chip_smoke.py."""
+(one bf16 rounding of the output); ssm_scan 1e-4 f32, 5e-2 bf16.  On
+the CPU the port's wrappers use their plain versions; the CUDA kernels
+are held against the same plain versions on the card by chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +13,13 @@ import torch
 from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
 from repro.kernels.flash_decode import ops as jfd_ops, ref as jfd_ref
 from repro.kernels.rmsnorm import ops as jrms_ops, ref as jrms_ref
+from repro.kernels.ssm_scan import ops as jssm_ops, ref as jssm_ref
 from repro.kernels.tiling import fit_block as jfit_block
 from repro.models.layers import quantize_kv as jquantize_kv
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops, ref as fd_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops, ref as rms_ref
+from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref
 from repro_torch.kernels.tiling import fit_block
 from repro_torch.models.layers import quantize_kv
 
@@ -121,13 +123,16 @@ def test_flash_decode_parity(B, H, Hkv, S, hd, length, kv_dtype):
 def test_wrappers_take_plain_version_only_on_cpu():
     """The dispatch is by the tensor's device alone: a CPU tensor takes
     the plain version and counts no launch."""
-    before = (rms_ops.launches, fa_ops.launches, fd_ops.launches)
+    mods = (rms_ops, fa_ops, fd_ops, ssm_ops)
+    before = [m.launches for m in mods]
     x = torch.randn(2, 3, 64)
     rms_ops.rmsnorm(x, torch.ones(64))
     q = torch.randn(1, 16, 2, 32)
     fa_ops.flash_attention(q, q, q)
     fd_ops.flash_decode(q[:, :1], q, q, 5)
-    assert before == (rms_ops.launches, fa_ops.launches, fd_ops.launches)
+    b = torch.randn(1, 16, 8)
+    ssm_ops.ssm_scan(q, b, b, q[..., 0], -q[..., 0].abs(), chunk=8)
+    assert before == [m.launches for m in mods]
 
 
 @pytest.mark.parametrize("block_kv,hd,dtype,fits", [
@@ -135,8 +140,82 @@ def test_wrappers_take_plain_version_only_on_cpu():
     (256, 128, torch.bfloat16, True), (512, 128, torch.bfloat16, False),
     (256, 64, torch.float32, True), (512, 64, torch.float32, False),
     (128, 128, torch.float32, True), (256, 128, torch.float32, False),
-    (512, 32, torch.float32, True)])
+    (512, 32, torch.float32, True),
+    # hd 112 (zamba2-7b, kimi-k2) and 192 (nemotron-4-340b)
+    (512, 112, torch.bfloat16, True), (256, 112, torch.float32, True),
+    (512, 112, torch.float32, False), (256, 192, torch.bfloat16, True),
+    (512, 192, torch.bfloat16, False), (128, 192, torch.float32, True),
+    (256, 192, torch.float32, False)])
 def test_flash_attention_smem_table(block_kv, hd, dtype, fits):
     need = fa_ops.smem_bytes(block_kv, hd, dtype)
     assert need == 2 * block_kv * hd * (2 if dtype == torch.bfloat16 else 4)
     assert (need <= fa_ops.SMEM_LIMIT) == fits
+
+
+def test_head_dims_cover_every_config():
+    """Both attention wrappers take every multiple of 16 up to 256, which
+    covers the head dim of every config that has attention (112:
+    zamba2-7b, kimi-k2; 192: nemotron-4-340b; xlstm has none)."""
+    from repro_torch.configs import get_config, list_archs
+    want = tuple(range(16, 257, 16))
+    assert fa_ops.HEAD_DIMS == fd_ops.HEAD_DIMS == want
+    hds = {get_config(a).hd for a in list_archs()
+           if get_config(a).family != "ssm"}
+    assert {112, 192} <= hds and hds <= set(want)
+
+
+def ssm_inputs(B, S, H, P, N, seed):
+    """The reference test's distributions, drawn with numpy."""
+    rng = np.random.RandomState(seed)
+    X = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    Bm = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    la = (-dt * np.exp(rng.standard_normal(H) * 0.2)[None, None]
+          ).astype(np.float32)
+    return X, Bm, Cm, dt, la
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 256, 1, 64, 64, 64),
+    (1, 96, 2, 8, 8, 64),                    # ragged: chunk fits to 48
+    (1, 130, 2, 8, 8, 32)])                  # ragged: chunk fits to 26
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_parity(B, S, H, P, N, chunk, dtype):
+    X, Bm, Cm, dt, la = ssm_inputs(B, S, H, P, N, S * H)
+    (jX, tX), (jB, tB), (jC, tC) = (both(a, dtype) for a in (X, Bm, Cm))
+    (jdt, tdt), (jla, tla) = both(dt), both(la)
+    t = dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" \
+        else dict(atol=1e-4, rtol=1e-4)
+    Y, h = ssm_ops.ssm_scan(tX, tB, tC, tdt, tla, chunk=chunk)
+    assert Y.dtype == tX.dtype and Y.shape == tX.shape
+    assert h.dtype == torch.float32 and h.shape == (B, H, P, N)
+    jY, jh = jssm_ops.ssm_scan(jX, jB, jC, jdt, jla, chunk=chunk)
+    np.testing.assert_allclose(t2n(Y), j2n(jY), **t)
+    np.testing.assert_allclose(t2n(h), j2n(jh), **t)
+    # the exact per-token oracles of both packages, and the chunked
+    # version against the oracle
+    tYr, thr = ssm_ref.ssm_scan_ref(tX, tB, tC, tdt, tla)
+    jYr, jhr = jssm_ref.ssm_scan_ref(jX, jB, jC, jdt, jla)
+    np.testing.assert_allclose(t2n(tYr), j2n(jYr), **t)
+    np.testing.assert_allclose(t2n(thr), j2n(jhr), **t)
+    np.testing.assert_allclose(t2n(Y), j2n(jYr), **t)
+    np.testing.assert_allclose(t2n(h), j2n(jhr), **t)
+
+
+def test_ssm_scan_chunked_takes_any_dividing_chunk():
+    """The plain chunked version is right for every chunk that divides S,
+    down to 1 (a prime S fits the chunk to 1), and refuses one that does
+    not divide S (the wrapper fits it first)."""
+    X, Bm, Cm, dt, la = (torch.from_numpy(a)
+                         for a in ssm_inputs(1, 37, 2, 8, 4, 0))
+    Yr, hr = ssm_ref.ssm_scan_ref(X, Bm, Cm, dt, la)
+    assert fit_block(32, 37) == 1
+    for chunk in (1, 37):
+        Y, h = ssm_ref.ssm_scan_chunked(X, Bm, Cm, dt, la, chunk)
+        np.testing.assert_allclose(Y.numpy(), Yr.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(h.numpy(), hr.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+    with pytest.raises(ValueError):
+        ssm_ref.ssm_scan_chunked(X, Bm, Cm, dt, la, 5)

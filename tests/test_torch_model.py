@@ -25,7 +25,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.params import default_config
 from repro_torch.models.model import build_model
 
-from _torch_parity import j2n, shared_params, t2n
+from _torch_parity import fro_close, j2n, rel_close, shared_params, t2n
 
 B, S, MAX_SEQ, STEPS = 2, 12, 24, 4
 
@@ -59,20 +59,6 @@ def run_both(arch, **kw):
         jtok = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
     out["cache"] = (jcache, tcache)
     return out
-
-
-def rel_close(t, j, tol):
-    a, b = t2n(t), j2n(j)
-    assert a.shape == b.shape
-    scale = max(float(np.abs(b).max()), 1e-6)
-    assert float(np.abs(a - b).max()) / scale <= tol, \
-        (float(np.abs(a - b).max()), scale)
-
-
-def fro_close(t, j, tol):
-    a, b = t2n(t), j2n(j)
-    assert a.shape == b.shape
-    assert float(np.linalg.norm(a - b) / np.linalg.norm(b)) <= tol
 
 
 def check_cache(jlayers, tlayers, kv, tol):

@@ -115,13 +115,15 @@ print("imported", len(mods))
 
 def test_unported_parts_raise():
     from repro_torch.models.model import build_model
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import layers, transformer, zamba
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_configs.get_reduced("zamba2-7b"))
+        build_model(port_configs.get_reduced("xlstm-1.3b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_configs.get_reduced("olmoe-1b-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.loss_fn(None, None, None, None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        zamba.loss_fn(None, None, None, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.require_no_rules(object())
 
