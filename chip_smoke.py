@@ -2,6 +2,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
+    python3 chip_smoke.py --kernels-only [--ptxas]   # build, check, time
+
+With ``--kernels-only`` it stops after the kernels phase and prints that
+phase's record; its checks read each wrapper's shared-memory formula and,
+where the library reports it, hold the formula to it, so the same script
+can time the kernels of an older tree of the port beside this one.
 
 Drives the port's two serving paths (``repro_torch.launch.serve`` and
 ``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m (dense)
@@ -201,6 +207,7 @@ def kernels_rmsnorm(gen) -> dict:
 
 def kernels_flash_attention(gen) -> dict:
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops, ref
 
     def plain(q, k, v, causal):
@@ -221,6 +228,9 @@ def kernels_flash_attention(gen) -> dict:
         ((2, 300, 3, 112), True, (128, 128)),     # hd 112, ragged
         ((1, 512, 4, 192), True, (128, 128)),     # nemotron-4-340b hd 192
         ((2, 257, 2, 192), False, (128, 64)),     # hd 192, prime S
+        ((4, 919, 32, 112), True, (128, 128)),    # zamba smoke wave: prime S
+        ((4, 746, 32, 112), True, (128, 128)),    # zamba smoke wave: 2 x 373
+        ((4, 1000, 9, 64), True, (128, 128)),     # ragged: tiles fit to 125
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, causal, (bq, bkv) in cases:
@@ -231,18 +241,39 @@ def kernels_flash_attention(gen) -> dict:
                         f"tiles={bq}/{bkv}", got, plain(q, k, v, causal),
                         TOL[dtype])
             worst = max(worst, err)
-    # a KV tile that cannot fit the block's shared memory raises
-    refused = []
-    for hd, need in ((128, 262_144), (192, 393_216)):
-        q = _randn(gen, (1, 512, 2, hd), torch.bfloat16)
-        try:
-            ops.flash_attention(q, q, q, block_q=128, block_kv=512)
-        except ValueError as e:
-            if str(need) not in str(e):
-                raise
-            refused.append(str(e))
-        else:
-            raise AssertionError(f"a {need} B KV tile was not refused")
+    # the wrapper's shared-memory formula decides: a tile it says does not
+    # fit raises with its byte count, one it says fits runs and agrees
+    refused, accepted = [], []
+    for hd in (128, 192):
+        for dtype in (torch.bfloat16, torch.float32):
+            need = ops.smem_bytes(512, hd, dtype)
+            q = _randn(gen, (1, 512, 2, hd), dtype)
+            try:
+                got = ops.flash_attention(q, q, q, block_q=128, block_kv=512)
+            except ValueError as e:
+                if need <= ops.SMEM_LIMIT or str(need) not in str(e):
+                    raise
+                refused.append(str(e))
+                continue
+            if need > ops.SMEM_LIMIT:
+                raise AssertionError(f"a {need} B tile was not refused")
+            worst = max(worst, check(
+                f"flash_attention {dtype} hd{hd} block_kv 512", got,
+                plain(q, q, q, True), TOL[dtype]))
+            accepted.append(f"{dtype} hd {hd} block_kv 512: {need} B")
+
+    # where the library reports a kernel's shared memory, the wrapper's
+    # formula (the refusal above, the tests' table) must say the same
+    lib = _build.lib()
+    if hasattr(lib, "rt_flash_attention_smem"):
+        for hd in ops.HEAD_DIMS:
+            for dtype, bkv in ((torch.bfloat16, 512), (torch.float32, 64)):
+                got = lib.rt_flash_attention_smem(
+                    hd, bkv, int(dtype == torch.bfloat16))
+                if got != ops.smem_bytes(bkv, hd, dtype):
+                    raise AssertionError(
+                        f"flash_attention smem {dtype} hd {hd}: kernel "
+                        f"{got} B, wrapper {ops.smem_bytes(bkv, hd, dtype)}")
 
     def timed(shape, dtype, tiles=(128, 128)):
         B, S, H, hd = shape
@@ -265,7 +296,12 @@ def kernels_flash_attention(gen) -> dict:
               timed((4, 1024, 9, 64), torch.float32),
               timed((4, 1024, 9, 64), torch.bfloat16, (256, 256)),
               timed((4, 1024, 9, 64), torch.bfloat16, (512, 512)),
-              timed((4, 1024, 32, 112), torch.bfloat16)]   # zamba2-7b
+              timed((4, 1024, 32, 112), torch.bfloat16),   # zamba2-7b
+              # the zamba smoke trace's waves (prime S, 2 x 373) and a
+              # ragged smollm length
+              timed((4, 919, 32, 112), torch.bfloat16),
+              timed((4, 746, 32, 112), torch.bfloat16),
+              timed((4, 1000, 9, 64), torch.bfloat16)]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
@@ -275,11 +311,12 @@ def kernels_flash_attention(gen) -> dict:
                                          "bound_by", "library_ms")},
             "timed_shape": "q/k/v (4,1024,9,64) bf16 causal, tiles 128/128",
             "head_dims_checked": sorted({c[0][3] for c in cases}),
-            "refused": refused, "shapes": shapes}
+            "refused": refused, "accepted": accepted, "shapes": shapes}
 
 
 def kernels_flash_decode(gen) -> dict:
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_decode import ops, ref
     from repro_torch.models.layers import quantize_kv
 
@@ -331,6 +368,31 @@ def kernels_flash_decode(gen) -> dict:
                 worst = max(worst, check(
                     f"flash_decode {kv} hd{hd} length={length}", got,
                     plain(q, kc, vc, ks, vs, length), tol))
+            # calls in a row give the same bits: the merge's tickets are
+            # back at 0 after every call
+            again = [ops.flash_decode(q, kc, vc, lengths[-1], ks, vs,
+                                      block_kv=128) for _ in range(3)]
+            if not all(torch.equal(a, got) for a in again):
+                raise AssertionError(f"flash_decode {kv} hd{hd}: repeated "
+                                     "calls differ")
+
+    # where the library reports a block's shared memory, the wrapper's
+    # mirror of it (which picks the warps per block) must say the same
+    lib = _build.lib()
+    if hasattr(lib, "rt_flash_decode_smem"):
+        for hd in ops.HEAD_DIMS:
+            for kvb in (1, 2, 4):
+                stages = ops.ring_stages(hd, kvb)
+                for slots in (1, 4):
+                    for warps in (4, 8):
+                        got = lib.rt_flash_decode_smem(hd, kvb, slots, warps,
+                                                       stages)
+                        want = ops.smem_bytes(hd, kvb, slots, warps, stages)
+                        if got != want:
+                            raise AssertionError(
+                                f"flash_decode smem hd {hd} kv {kvb} B "
+                                f"slots {slots} warps {warps}: kernel {got}"
+                                f" B, wrapper {want}")
 
     def timed(kv, length, geometry=(4, 2048, 9, 3, 64)):
         B, S, H, Hkv, hd = geometry
@@ -338,7 +400,7 @@ def kernels_flash_decode(gen) -> dict:
         live = 2 * B * length * Hkv * hd * kc.element_size()
         if ks is not None:
             live += 2 * B * length * Hkv * 4
-        nbytes = live + B * H * hd * (q.element_size() + 4)
+        nbytes = live + 2 * B * H * hd * q.element_size()   # q in, o out
         b_ms, by = bound(nbytes, 4 * B * H * length * hd, q.dtype)
         lib = None
         if ks is None:   # one library call: the group's heads as query rows
@@ -346,9 +408,15 @@ def kernels_flash_decode(gen) -> dict:
             kt = kc[:, :length].transpose(1, 2)
             vt = vc[:, :length].transpose(1, 2)
             lib = time_ms(lambda: F.scaled_dot_product_attention(qg, kt, vt))
+        plan = None
+        if hasattr(ops, "plan_split"):   # the split this call runs
+            plan = ops.plan_split(
+                B, Hkv, H // Hkv, hd, length, 128,
+                torch.cuda.get_device_properties(0).multi_processor_count,
+                kc.element_size())._asdict()
         return {"shape": {"B": B, "Smax": S, "H": H, "Hkv": Hkv, "hd": hd,
                           "length": length, "block_kv": 128},
-                "cache": kv,
+                "cache": kv, "plan": plan,
                 "ms": time_ms(lambda: ops.flash_decode(
                     q, kc, vc, length, ks, vs, block_kv=128)),
                 "eager_ms": eager_ms(lambda: ops.flash_decode(
@@ -358,9 +426,11 @@ def kernels_flash_decode(gen) -> dict:
                 "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
     # the serving paths' shapes: B=4, cache grown to about 1056 positions
     zamba = (4, 1088, 32, 32, 112)
+    glm4, nemotron = (2, 32768, 32, 2, 128), (2, 640, 96, 8, 192)
     shapes = [timed("bfloat16", 1056), timed("int8", 1056),
               timed("bfloat16", 2048), timed("bfloat16", 1056, zamba),
-              timed("int8", 1056, zamba)]
+              timed("int8", 1056, zamba), timed("bfloat16", 20001, glm4),
+              timed("int8", 20001, glm4), timed("bfloat16", 640, nemotron)]
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:84",
@@ -810,6 +880,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory "
                          "report for every kernel")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels phase and print its "
+                         "record (for comparing two trees' kernels)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -824,6 +897,9 @@ def main(argv=None) -> int:
     smi = phase_env()
     phase_build(args.ptxas)
     records = phase_kernels()
+    if args.kernels_only:
+        print(json.dumps({"kernels": records}), flush=True)
+        return 0
     phase_agree()
     phase_agree_zamba()
     # the main paths: every launch counter is set to 0 just before each

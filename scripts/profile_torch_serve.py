@@ -10,7 +10,10 @@ prefill and a window of decode steps on the host clock (ending in a
 synchronise), then traces the same work with ``torch.profiler`` and
 prints, for the prefill and for the decode window, the device-busy share
 (sum of kernel time over wall time) and the kernels by total device
-time.  Needs a CUDA device; prints the card's name and power limit.
+time, and for the two attention wrappers their calls beside the device
+kernels they launched (one each: the bf16 prefill kernel, the one-launch
+decode kernel).  Needs a CUDA device; prints the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -75,7 +78,15 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    wrappers = {"flash_attention": fa, "flash_decode": fd}
+    # the device kernels each wrapper launches, by symbol
+    port_kernels = {"flash_attention": ("flash_tc_kernel", "flash_kernel"),
+                    "flash_decode": ("decode_kernel",)}
+
     def traced(fn):
+        before = {n: m.launches for n, m in wrappers.items()}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, ms = wall(fn)
@@ -84,8 +95,20 @@ def main(argv=None) -> int:
                 and e.device_type == torch.autograd.DeviceType.CUDA]
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
+        per_call = {}
+        for name, mod in wrappers.items():
+            calls = mod.launches - before[name]
+            hits = [(t, c) for k, t, c in rows
+                    if any(sym in k for sym in port_kernels[name])]
+            per_call[name] = {
+                "wrapper_calls": calls,
+                "device_kernels": sum(c for _, c in hits),
+                "device_ms": sum(t for t, _ in hits),
+                "device_ms_per_call": (sum(t for t, _ in hits) / calls
+                                       if calls else None)}
         return {"wall_ms_traced": ms, "device_busy_ms": busy,
                 "device_busy_share": busy / ms if ms else None,
+                "attention_kernels": per_call,
                 "kernels": [{"name": k[:90], "device_ms": t, "calls": c}
                             for k, t, c in rows[:12]]}
 

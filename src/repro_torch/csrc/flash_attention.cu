@@ -1,42 +1,53 @@
-// Tiled online-softmax attention for Hopper (sm_90a), forward only.
+// Tiled online-softmax attention for Hopper (sm_90a), forward only:
+// the f32 path and the entry point.  The bf16 path, on the tensor cores,
+// is flash_attention_tc.cu.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py,
 // _flash_kernel (the Pallas kernel behind flash_attention_bhsd /
 // ops.flash_attention).
 // Computes: softmax(q k^T / sqrt(hd) [+ causal mask]) v per (batch, head)
-// without ever writing the S x S scores to device memory.  Inputs are
-// cast to f32, q is scaled first, masked scores are -1e30, the running
-// (m, l, acc) are f32 and the denominator is clamped at 1e-20 -- the
-// constants of the reference.  q/k/v/o: (B, S, H, hd), K/V already
-// repeated to the query heads, f32 or bf16.
+// without ever writing the S x S scores to device memory.  q is scaled
+// first, masked scores are -1e30, the running (m, l, acc) are f32 and the
+// denominator is clamped at 1e-20 -- the constants of the reference.
+// q/k/v/o: (B, S, H, hd), K/V already repeated to the query heads.
 //
-// Bound on this card: operations.  4*S*S*hd flops per (batch, head)
-// (half of that when causal) against 4*S*hd elements moved; at S = 1024,
-// hd = 64 that is hundreds of flops per byte.  All math is f32 on the
-// CUDA cores, as the reference computes in f32, so the rate to hold it
-// against is the card's f32 rate, not the tensor cores'.
+// The entry point dispatches on the dtype: bf16 goes to the tensor-core
+// kernel, f32 to the CUDA-core kernel below (the reference computes in
+// f32, and the tensor cores have no f32 operands; TF32 would not hold
+// the 2e-5 of the f32 checks).
 //
-// Design.  The reference keeps (m, l, acc) in scratch memory across a
-// sequential last grid axis; blocks here run in no order, so one block
-// owns a (batch, head, q-tile) and LOOPS over the KV tiles up to the
-// causal limit.  A KV tile (block_kv rows of K and of V, in their stored
-// dtype) is staged through shared memory once per pass and read by every
-// thread of the block.  The q rows, (m, l) and acc live in registers: a
-// query row is split over TPR neighbouring lanes (16 dims each, the dot
+// Bound of the f32 kernel on this card: operations.  4*S*S*hd flops per
+// (batch, head) (half of that when causal) against 4*S*hd elements
+// moved; all math is f32 on the CUDA cores, so the rate to hold it
+// against is the card's f32 rate.
+//
+// Design of the f32 kernel.  The reference keeps (m, l, acc) in scratch
+// memory across a sequential last grid axis; blocks here run in no
+// order, so one block owns a (batch, head, q-tile) and LOOPS over the KV
+// tiles up to the causal limit.  A KV tile (block_kv rows of K and of V)
+// is staged through shared memory once per pass and read by every thread
+// of the block.  The q rows, (m, l) and acc live in registers: a query
+// row is split over TPR neighbouring lanes (16 dims each, the dot
 // product finished with xor shuffles), and each thread carries 2 rows.
 // TPR is hd/16 rounded up to a power of two, so the shuffles pair lanes
 // of one row at every head dim that is a multiple of 16 up to 256: at hd
 // 112 a row has 8 lanes, of which the 8th holds dims 112..127, which do
 // not exist -- such a lane loads nothing, contributes 0 to the dot
 // product and stores nothing (hd 192: 16 lanes, 4 idle).  256 threads
-// cover a pass of 512/TPR query rows; a logical q tile larger than that
-// is walked in such passes.  Scores are formed 8 keys at a time so acc
-// is rescaled once per 8 keys.  Ragged edges are masked here: any S >= 1
+// cover a pass of 512/TPR query rows; a q tile larger than that is
+// walked in such passes.  Scores are formed 8 keys at a time so acc is
+// rescaled once per 8 keys.  Ragged edges are masked here: any S >= 1
 // and any tile size >= 1 is right.  Warps whose rows all lie before a
 // chunk of keys skip it (causal).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// flash_attention_tc.cu
+cudaError_t rt_flash_tc_launch(const void* q, const void* k, const void* v,
+                               void* o, int B, int S, int H, int hd,
+                               int causal, cudaStream_t stream);
+int rt_flash_tc_smem(int hd);
 
 namespace {
 
@@ -57,32 +68,11 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint4 raw = reinterpret_cast<const uint4*>(p)[i];
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[8 * i + j] = __bfloat162float(e[j]);
-  }
-}
-
 __device__ __forceinline__ void store16(float* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     reinterpret_cast<float4*>(p)[i] =
         make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint4 raw;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(v[8 * i + j]);
-    reinterpret_cast<uint4*>(p)[i] = raw;
-  }
 }
 
 // Lanes per query row: hd/16 rounded up to a power of two.
@@ -92,19 +82,19 @@ __host__ __device__ constexpr int lanes_per_row(int hd) {
   return t;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int H,
-             int block_q, int block_kv, int causal, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int S,
+             int H, int block_q, int block_kv, int causal, float scale) {
   constexpr int TPR = lanes_per_row(HD);     // lanes per query row
   constexpr int GROUPS = kThreads / TPR;     // row groups per block
   constexpr int PASS = GROUPS * kRows;       // query rows per pass
-  constexpr int VPR = HD * sizeof(T) / 16;   // 16-byte vectors per row
+  constexpr int VPR = HD * sizeof(float) / 16;   // 16-byte vectors per row
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + (size_t)block_kv * HD;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + (size_t)block_kv * HD;
 
   const int tid = threadIdx.x;
   const int slice = tid % TPR;
@@ -114,10 +104,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t row_stride = (size_t)H * HD;
   const size_t base = ((size_t)b * S * H + h) * HD;
-  const T* qb = q + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
-  T* ob = o + base;
+  const float* qb = q + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
+  float* ob = o + base;
 
   const int tile_start = blockIdx.x * block_q;
   const int tile_end = min(S, tile_start + block_q);
@@ -235,34 +225,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int block_q, int block_kv, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)block_kv * HD * sizeof(T);
+size_t f32_smem(int block_kv, int hd) {
+  return 2 * (size_t)block_kv * hd * sizeof(float);
+}
+
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int block_q, int block_kv,
+                       int causal, cudaStream_t stream) {
+  const size_t smem = f32_smem(block_kv, HD);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + block_q - 1) / block_q, H, B);
   const float scale = 1.0f / sqrtf((float)HD);
-  flash_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, block_q, block_kv,
-      causal, scale);
+  flash_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, block_q,
+      block_kv, causal, scale);
   return cudaGetLastError();
 }
 
 // hd: any multiple of 16 up to 256, each its own instantiation.
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int hd, int block_q,
-                        int block_kv, int causal, cudaStream_t stream) {
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int H, int hd, int block_q,
+                         int block_kv, int causal, cudaStream_t stream) {
   switch (hd) {
 #define RT_HD(D)                                                          \
   case D:                                                                 \
-    return launch<T, D>(q, k, v, o, B, S, H, block_q, block_kv, causal, \
-                        stream);
+    return launch_f32<D>(q, k, v, o, B, S, H, block_q, block_kv, causal,  \
+                         stream);
     RT_HD(16) RT_HD(32) RT_HD(48) RT_HD(64) RT_HD(80) RT_HD(96) RT_HD(112)
     RT_HD(128) RT_HD(144) RT_HD(160) RT_HD(176) RT_HD(192) RT_HD(208)
     RT_HD(224) RT_HD(240) RT_HD(256)
@@ -274,6 +267,8 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// block_q / block_kv are the f32 kernel's tiles; the bf16 kernel runs its
+// own (flash_attention_tc.cu) and does not read them.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int B, int S, int H, int hd,
                                   int block_q, int block_kv, int causal,
@@ -282,9 +277,16 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0 || block_q <= 0 || block_kv <= 0 ||
       H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  return (int)(is_bf16 ? dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, hd,
-                                                    block_q, block_kv, causal,
-                                                    s)
-                       : dispatch_hd<float>(q, k, v, o, B, S, H, hd, block_q,
-                                            block_kv, causal, s));
+  return (int)(is_bf16 ? rt_flash_tc_launch(q, k, v, o, B, S, H, hd, causal,
+                                            s)
+                       : dispatch_f32(q, k, v, o, B, S, H, hd, block_q,
+                                      block_kv, causal, s));
+}
+
+// Shared memory one block of the kernel for (hd, dtype) asks for, in
+// bytes (block_kv is read by the f32 kernel only); -1 for an hd that no
+// kernel takes.
+extern "C" int rt_flash_attention_smem(int hd, int block_kv, int is_bf16) {
+  if (hd < 16 || hd > 256 || hd % 16 != 0) return -1;
+  return is_bf16 ? rt_flash_tc_smem(hd) : (int)f32_smem(block_kv, hd);
 }

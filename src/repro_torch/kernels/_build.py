@@ -34,11 +34,18 @@ _SIGNATURES: Dict[str, List] = {
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, B, S, H, hd, block_q, block_kv, causal, is_bf16, stream
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, k_scale, v_scale, part_m, part_l, part_acc, out,
-    # B, Smax, H, Hkv, hd, length, block_kv, n_tiles, kv_kind, q_is_bf16,
-    # stream
-    "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # hd, block_kv, is_bf16 -> shared-memory bytes of one block (not an
+    # error code)
+    "rt_flash_attention_smem": [_I, _I, _I],
+    # q, k, v, k_scale, v_scale, part_m, part_l, part_acc, tickets, out,
+    # B, Smax, H, Hkv, hd, length, head slots, span, n_split, warps,
+    # stages, kv_kind, q_is_bf16, stream
+    "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
+    # hd, kv_bytes, head slots, warps, stages -> shared-memory bytes of
+    # one block (not an error code)
+    "rt_flash_decode_smem": [_I, _I, _I, _I, _I],
     # X, Bm, Cm, dt, la, Y, h_final, B, S, H, P, N, chunk, x_is_bf16, stream
     "rt_ssm_scan": [_P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],

@@ -1,8 +1,9 @@
 """Public wrapper: (B, S, H, hd) layout used by the model zoo.
 
-A CUDA tensor goes to the hand-written kernel (csrc/flash_attention.cu)
-or raises; a CPU tensor takes the plain version (ref.py), and only
-because it lies on the CPU.
+A CUDA tensor goes to the hand-written kernels or raises: bf16 to the
+tensor-core kernel (csrc/flash_attention_tc.cu), f32 to the CUDA-core
+kernel (csrc/flash_attention.cu).  A CPU tensor takes the plain version
+(ref.py), and only because it lies on the CPU.
 """
 from __future__ import annotations
 
@@ -14,12 +15,29 @@ from repro_torch.kernels.tiling import fit_block
 
 SMEM_LIMIT = 232_448      # dynamic shared memory one block can have
 HEAD_DIMS = tuple(range(16, 257, 16))   # every multiple of 16 up to 256
+TC_STAGES = 2             # K/V stages in the bf16 kernel's ring
 launches = 0              # kernel launches made by this wrapper
 
 
+def tc_tiles(hd: int) -> tuple:
+    """(query rows, keys per stage) of one block of the bf16 kernel: 4
+    warps of one 16-row m-tile and 64 keys up to hd 64; of two m-tiles and
+    32 keys to hd 128; of one m-tile and 32 keys above."""
+    if hd <= 64:
+        return 64, 64
+    return (128, 32) if hd <= 128 else (64, 32)
+
+
 def smem_bytes(block_kv: int, hd: int, dtype: torch.dtype) -> int:
-    """Shared memory the kernel stages one KV tile in: block_kv rows of K
-    and of V in their stored dtype."""
+    """Shared memory one block of the kernel for ``dtype`` asks for.
+
+    bf16: the block's Q rows and ``TC_STAGES`` stages of K and V, rows
+    padded by 8 elements; the kernel's own tiles (``tc_tiles``), whatever
+    the knob -- at most 101,376 bytes, at hd 256: it always fits.  f32:
+    one KV tile of ``block_kv`` rows of K and of V."""
+    if dtype == torch.bfloat16:
+        bq, bkv = tc_tiles(hd)
+        return (bq + TC_STAGES * 2 * bkv) * (int(hd) + 8) * 2
     return 2 * int(block_kv) * int(hd) * dtype.itemsize
 
 
@@ -29,9 +47,11 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
 
     Blocks are fitted to the largest divisor of S <= the request, as in
     the reference, so a knob value names the same logical tile in both
-    packages.  A (block_kv, hd, dtype) whose KV tile does not fit the
-    block's shared memory raises with the byte count; it is never
-    refitted."""
+    packages.  The f32 kernel runs the fitted tiles; a (block_kv, hd)
+    whose f32 KV tile does not fit the block's shared memory raises with
+    the byte count and is never refitted.  The bf16 kernel runs its own
+    tiles (``tc_tiles``, ragged edges masked) whatever the knob, and fits
+    at every head dim."""
     global launches
     if not q.is_cuda:
         o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
