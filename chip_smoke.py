@@ -1,13 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device and nvcc
-    python3 chip_smoke.py --kernels-only [--ptxas]   # build, check, time
-
-With ``--kernels-only`` it stops after the kernels phase and prints that
-phase's record; its checks read each wrapper's shared-memory formula and,
-where the library reports it, hold the formula to it, so the same script
-can time the kernels of an older tree of the port beside this one.
+    python3 chip_smoke.py [--ptxas]  # needs one CUDA device and nvcc
 
 Drives the port's two serving paths (``repro_torch.launch.serve`` and
 ``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m (dense)
@@ -59,6 +53,10 @@ sys.path.insert(0, str(ROOT / "src"))
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.int8: 2e-2}
+# flash_attention's two kernels: bf16 on the tensor cores, f32 on the
+# CUDA cores (the latter also holds the entry point)
+BF16_SOURCE = "src/repro_torch/csrc/flash_attention_tc.cu"
+F32_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 
 
 def emit(phase: str, **fields) -> None:
@@ -206,6 +204,8 @@ def kernels_rmsnorm(gen) -> dict:
 
 
 def kernels_flash_attention(gen) -> dict:
+    """bf16 runs the tensor-core kernel, f32 the CUDA-core one; each timed
+    shape names the source of the kernel it ran."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops, ref
@@ -262,18 +262,17 @@ def kernels_flash_attention(gen) -> dict:
                 plain(q, q, q, True), TOL[dtype]))
             accepted.append(f"{dtype} hd {hd} block_kv 512: {need} B")
 
-    # where the library reports a kernel's shared memory, the wrapper's
-    # formula (the refusal above, the tests' table) must say the same
+    # the wrapper's formula (the refusal above, the tests' table) must say
+    # what the library asks for
     lib = _build.lib()
-    if hasattr(lib, "rt_flash_attention_smem"):
-        for hd in ops.HEAD_DIMS:
-            for dtype, bkv in ((torch.bfloat16, 512), (torch.float32, 64)):
-                got = lib.rt_flash_attention_smem(
-                    hd, bkv, int(dtype == torch.bfloat16))
-                if got != ops.smem_bytes(bkv, hd, dtype):
-                    raise AssertionError(
-                        f"flash_attention smem {dtype} hd {hd}: kernel "
-                        f"{got} B, wrapper {ops.smem_bytes(bkv, hd, dtype)}")
+    for hd in ops.HEAD_DIMS:
+        for dtype, bkv in ((torch.bfloat16, 512), (torch.float32, 64)):
+            got = lib.rt_flash_attention_smem(hd, bkv,
+                                              int(dtype == torch.bfloat16))
+            if got != ops.smem_bytes(bkv, hd, dtype):
+                raise AssertionError(
+                    f"flash_attention smem {dtype} hd {hd}: kernel {got} B, "
+                    f"wrapper {ops.smem_bytes(bkv, hd, dtype)}")
 
     def timed(shape, dtype, tiles=(128, 128)):
         B, S, H, hd = shape
@@ -285,6 +284,8 @@ def kernels_flash_attention(gen) -> dict:
         run = lambda: ops.flash_attention(q, k, v, block_q=tiles[0],
                                           block_kv=tiles[1])
         return {"shape": list(shape), "dtype": str(dtype),
+                "source": BF16_SOURCE if dtype == torch.bfloat16
+                else F32_SOURCE,
                 "tiles": list(tiles), "ms": time_ms(run, iters=10),
                 "eager_ms": eager_ms(run, iters=10),
                 "plain_ms": time_ms(lambda: plain(q, k, v, True), iters=5),
@@ -302,8 +303,9 @@ def kernels_flash_attention(gen) -> dict:
               timed((4, 919, 32, 112), torch.bfloat16),
               timed((4, 746, 32, 112), torch.bfloat16),
               timed((4, 1000, 9, 64), torch.bfloat16)]
+    # the headline shape is bf16: flash_tc_kernel; f32 runs flash_kernel
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": BF16_SOURCE,
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:84",
             "max_abs_err": worst, "tolerance": {"f32": 2e-5, "bf16": 2e-2},
@@ -375,24 +377,33 @@ def kernels_flash_decode(gen) -> dict:
             if not all(torch.equal(a, got) for a in again):
                 raise AssertionError(f"flash_decode {kv} hd{hd}: repeated "
                                      "calls differ")
+    # one query head per KV head (as zamba2-7b) at the other bf16 lane-group
+    # sizes (hd 16, 32, 64, 128), with a ragged last tile and spans that
+    # merge
+    for hd in (16, 32, 64, 128):
+        q, kc, vc, ks, vs = make(2, 300, 4, 4, hd, "bfloat16")
+        for length in (1, 77, 300):
+            got = ops.flash_decode(q, kc, vc, length, ks, vs, block_kv=64)
+            worst = max(worst, check(
+                f"flash_decode bfloat16 n_rep 1 hd{hd} length={length}", got,
+                plain(q, kc, vc, ks, vs, length), 2e-2))
 
-    # where the library reports a block's shared memory, the wrapper's
-    # mirror of it (which picks the warps per block) must say the same
+    # the wrapper's mirror of a block's shared memory (which picks the
+    # warps per block) must say what the library asks for
     lib = _build.lib()
-    if hasattr(lib, "rt_flash_decode_smem"):
-        for hd in ops.HEAD_DIMS:
-            for kvb in (1, 2, 4):
-                stages = ops.ring_stages(hd, kvb)
-                for slots in (1, 4):
-                    for warps in (4, 8):
-                        got = lib.rt_flash_decode_smem(hd, kvb, slots, warps,
-                                                       stages)
-                        want = ops.smem_bytes(hd, kvb, slots, warps, stages)
-                        if got != want:
-                            raise AssertionError(
-                                f"flash_decode smem hd {hd} kv {kvb} B "
-                                f"slots {slots} warps {warps}: kernel {got}"
-                                f" B, wrapper {want}")
+    for hd in ops.HEAD_DIMS:
+        for kvb in (1, 2, 4):
+            stages = ops.ring_stages(hd, kvb)
+            for slots in (1, 4):
+                for warps in (4, 8):
+                    got = lib.rt_flash_decode_smem(hd, kvb, slots, warps,
+                                                   stages)
+                    want = ops.smem_bytes(hd, kvb, slots, warps, stages)
+                    if got != want:
+                        raise AssertionError(
+                            f"flash_decode smem hd {hd} kv {kvb} B slots "
+                            f"{slots} warps {warps}: kernel {got} B, "
+                            f"wrapper {want}")
 
     def timed(kv, length, geometry=(4, 2048, 9, 3, 64)):
         B, S, H, Hkv, hd = geometry
@@ -408,12 +419,10 @@ def kernels_flash_decode(gen) -> dict:
             kt = kc[:, :length].transpose(1, 2)
             vt = vc[:, :length].transpose(1, 2)
             lib = time_ms(lambda: F.scaled_dot_product_attention(qg, kt, vt))
-        plan = None
-        if hasattr(ops, "plan_split"):   # the split this call runs
-            plan = ops.plan_split(
-                B, Hkv, H // Hkv, hd, length, 128,
-                torch.cuda.get_device_properties(0).multi_processor_count,
-                kc.element_size())._asdict()
+        plan = ops.plan_split(   # the split this call runs
+            B, Hkv, H // Hkv, hd, length, 128,
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            kc.element_size())._asdict()
         return {"shape": {"B": B, "Smax": S, "H": H, "Hkv": Hkv, "hd": hd,
                           "length": length, "block_kv": 128},
                 "cache": kv, "plan": plan,
@@ -431,8 +440,9 @@ def kernels_flash_decode(gen) -> dict:
               timed("bfloat16", 2048), timed("bfloat16", 1056, zamba),
               timed("int8", 1056, zamba), timed("bfloat16", 20001, glm4),
               timed("int8", 20001, glm4), timed("bfloat16", 640, nemotron)]
+    # decode_kernel lives in the header; flash_decode.cu is its entry point
     return {"name": "flash_decode", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "source": "src/repro_torch/csrc/flash_decode.cuh",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:84",
             "max_abs_err": worst,
             "tolerance": {"f32": 2e-5, "bf16": 2e-2, "int8": 2e-2},
@@ -880,9 +890,6 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory "
                          "report for every kernel")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernels phase and print its "
-                         "record (for comparing two trees' kernels)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -897,9 +904,6 @@ def main(argv=None) -> int:
     smi = phase_env()
     phase_build(args.ptxas)
     records = phase_kernels()
-    if args.kernels_only:
-        print(json.dumps({"kernels": records}), flush=True)
-        return 0
     phase_agree()
     phase_agree_zamba()
     # the main paths: every launch counter is set to 0 just before each

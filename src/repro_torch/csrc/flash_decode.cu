@@ -25,8 +25,8 @@
 //   group) to finish -- it knows from an atomic ticket taken after a
 //   __threadfence() -- merges the n_split partials and writes the output
 //   in q's dtype.  It puts the ticket back to 0, so the counters
-//   (allocated once per device by the wrapper) need no memset between
-//   calls.  With one span the block writes the output itself.
+//   (allocated once per device and stream by the wrapper) need no memset
+//   between calls.  With one span the block writes the output itself.
 // - A block serves one KV head and NH query heads of its GQA group (NH =
 //   1 at n_rep = 1, so no slot idles there; else 4, a wider group taking
 //   ceil(n_rep / 4) blocks per span, the re-reads coming mostly from L2)
@@ -40,14 +40,14 @@
 //   with int8 rows, whose 16 values a chunk cost twice the work).
 // - Each of a block's warps (8 where the blocks fit on the SMs in one
 //   wave, else 4: the wrapper's plan) streams every n_warps-th tile of
-//   the span through a ring of its own (2-4 cp.async stages): it waits on
-//   nothing but its own copies, no block barrier inside the loop.  Rows past the span are
-//   zero-filled and masked.  Per tile a lane group forms the scores of
-//   its rows in base 2 (q is pre-scaled by log2(e)/sqrt(hd); int8: the
-//   row's scale multiplies the dot product, and the bytes are widened by
-//   a byte permute and a subtraction rather than the slower int-to-float
-//   unit), updates its (m, l, acc) ONCE for those rows, then adds P.V
-//   (int8: V's scale folded into P).  The lane groups, then the warps,
+//   the span through a ring of its own (2-4 cp.async stages): it waits
+//   on nothing but its own copies, no block barrier inside the loop.
+//   Rows past the span are zero-filled and masked.  Per tile a lane
+//   group forms the scores of its rows in base 2 (q is pre-scaled by
+//   log2(e)/sqrt(hd); int8: the row's scale multiplies the dot product,
+//   and the bytes are widened by a byte permute and a subtraction rather
+//   than the slower int-to-float unit), updates its (m, l, acc) ONCE for
+//   those rows, then adds P.V (int8: V's scale folded into P).  The lane groups, then the warps,
 //   then the spans are merged with weights exp2(m - max m).
 // - The reference walks the KV axis sequentially with (m, l, acc) in
 //   scratch memory and exponentiates with base e; here the sums are
@@ -65,9 +65,10 @@ using rt_decode::dispatch_lanes;
 // kv_kind: 0 = f32 cache, 1 = bf16 cache, 2 = int8 cache with f32 scales.
 // nh: query-head slots per block (1 or 4); the live cache is split into
 // n_split spans of `span` rows, each read by a block of `warps` (1-8)
-// warps whose tiles stream through `stages` (2-4) cp.async stages.  part_* (f32, n_split partials of every
-// (batch, head)) and tickets (B * Hkv * ceil(n_rep / nh) ints, 0 on
-// entry, 0 again on exit) are used only when n_split > 1.
+// warps whose tiles stream through `stages` (2-4) cp.async stages.
+// part_* (f32, n_split partials of every (batch, head)) and tickets
+// (B * Hkv * ceil(n_rep / nh) ints, 0 on entry, 0 again on exit) are used
+// only when n_split > 1.
 extern "C" int rt_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
                                void* part_m, void* part_l, void* part_acc,

@@ -1,35 +1,7 @@
-// One cache type's instantiations of the decode kernel (f32 cache);
+// The decode kernel's instantiations for one cache type (f32 cache);
 // see flash_decode.cu.
 #include "flash_decode.cuh"
 
 namespace rt_decode {
-
-// hd: any multiple of 16 up to 256.  The lane group of a row is its count
-// of 16-byte chunks rounded up to a power of two, at most 32 (an f32 row
-// over 128 dims gives a lane two chunks); only the groups a cache type
-// can need are instantiated.
-template <typename KV>
-cudaError_t dispatch_lanes(int nh, const Args& a, cudaStream_t stream) {
-  constexpr int EPC = 16 / sizeof(KV);
-  const int chunks = a.hd / EPC;
-  if constexpr (EPC == 16) {
-    if (chunks <= 1) return dispatch_nh<KV, 1, 1>(nh, a, stream);
-  }
-  if constexpr (EPC >= 8) {
-    if (chunks <= 2) return dispatch_nh<KV, 2, 1>(nh, a, stream);
-  }
-  if (chunks <= 4) return dispatch_nh<KV, 4, 1>(nh, a, stream);
-  if (chunks <= 8) return dispatch_nh<KV, 8, 1>(nh, a, stream);
-  if (chunks <= 16) return dispatch_nh<KV, 16, 1>(nh, a, stream);
-  if constexpr (EPC <= 8) {
-    if (chunks <= 32) return dispatch_nh<KV, 32, 1>(nh, a, stream);
-  }
-  if constexpr (EPC == 4) {
-    if (chunks <= 64) return dispatch_nh<KV, 32, 2>(nh, a, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
 template cudaError_t dispatch_lanes<float>(int, const Args&, cudaStream_t);
-
 }  // namespace rt_decode

@@ -8,7 +8,7 @@ launch per call) or raises; a CPU tensor takes the plain version
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -25,7 +25,9 @@ ONE_WAVE_WARPS = 8        # warps per block where the blocks fit one wave
 SMEM_LIMIT = 232_448      # dynamic shared memory one block can have
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = 0    # kernel launches made by this wrapper (one per call)
-_tickets: Dict[torch.device, torch.Tensor] = {}   # merge tickets per device
+# merge tickets per (device, stream): calls on one stream run one after
+# another, so each finds its buffer back at zero
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 class Split(NamedTuple):
@@ -115,13 +117,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+def _ticket_buffer(device: torch.device, stream: int,
+                   n: int) -> torch.Tensor:
     """Zeroed ints that the kernel leaves at zero: allocated once per
-    device (again only when a call needs more of them)."""
-    buf = _tickets.get(device)
+    device and stream (again only when a call needs more of them).  Calls
+    on two streams at once would otherwise share tickets, and a merging
+    block could fire early or never."""
+    buf = _tickets.get((device, stream))
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = buf
+        _tickets[(device, stream)] = buf
     return buf
 
 
@@ -178,7 +183,9 @@ def flash_decode(q, k_cache, v_cache, length, k_scale=None, v_scale=None,
     n_rep = H // Hkv
     plan = plan_split(B, Hkv, n_rep, hd, length, fit_block(block_kv, S),
                       _sm_count(q.device), k_cache.element_size())
-    tickets = _ticket_buffer(q.device, B * Hkv * -(-n_rep // plan.slots))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _ticket_buffer(q.device, stream,
+                             B * Hkv * -(-n_rep // plan.slots))
     # one scratch buffer for the per-span partials: m, l (B,H,n_split)
     # and acc (B,H,n_split,hd), all f32; unused with one span
     n_part = B * H * plan.n_split if plan.n_split > 1 else 0
@@ -195,8 +202,7 @@ def flash_decode(q, k_cache, v_cache, length, k_scale=None, v_scale=None,
         part_m, part_l, part_acc, tickets.data_ptr(), out.data_ptr(),
         B, S, H, Hkv, hd, length, plan.slots, plan.span, plan.n_split,
         plan.warps, plan.stages, _KV_KINDS[k_cache.dtype],
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(q.dtype == torch.bfloat16), stream)
     _build.check(err, "flash_decode")
     launches += 1
     return out

@@ -182,6 +182,7 @@ def split_decode(q, kc, vc, length, ks, vs, plan):
 @pytest.mark.parametrize("geometry", [
     (2, 256, 6, 2, 64, 200),     # GQA 3: one block of 4 slots per group
     (2, 96, 4, 4, 112, 77),      # n_rep 1, hd 112 (zamba2-7b's)
+    (1, 160, 2, 2, 32, 130),     # n_rep 1, hd 32: 64-row warp tiles
     (1, 192, 16, 2, 32, 150),    # GQA 8: two blocks per group
 ])
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
@@ -231,8 +232,7 @@ def test_head_slots(n_rep, slots):
     # hd 256, 4 slots: the merge bound allows at most 16 spans
     ((1, 1, 4, 256, 8192), 64, 1000, (4, 512, 16)),
 ])
-def test_plan_split(geometry, block_kv, n_sm, want, monkeypatch):
-    monkeypatch.setattr(fd_ops, "BLOCKS_PER_SM", 2)
+def test_plan_split(geometry, block_kv, n_sm, want):
     B, Hkv, n_rep, hd, length = geometry
     got = fd_ops.plan_split(B, Hkv, n_rep, hd, length, block_kv, n_sm)
     assert got[:3] == want
@@ -266,6 +266,20 @@ def test_plan_split_invariants(length, block_kv):
                     p.n_split * p.slots * hd * 2 > fd_ops.MERGE_FLOATS
 
 
+def test_ticket_buffers_per_stream(monkeypatch):
+    """Calls on two streams never share merge tickets; one stream keeps
+    its zeroed buffer and replaces it only when a call needs more."""
+    monkeypatch.setattr(fd_ops, "_tickets", {})
+    cpu = torch.device("cpu")
+    a = fd_ops._ticket_buffer(cpu, 1, 8)
+    assert fd_ops._ticket_buffer(cpu, 1, 100) is a
+    b = fd_ops._ticket_buffer(cpu, 2, 8)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    big = fd_ops._ticket_buffer(cpu, 1, 5000)
+    assert big.numel() >= 5000 and big.dtype == torch.int32
+    assert not big.any() and fd_ops._ticket_buffer(cpu, 2, 8) is b
+
+
 @pytest.mark.parametrize("hd,kv_bytes,rows", [
     (16, 1, 128), (64, 2, 32), (112, 2, 16), (112, 1, 16), (128, 4, 8),
     (256, 2, 8), (256, 4, 4)])
@@ -281,19 +295,15 @@ def test_ring_stages(hd, kv_bytes, rows):
                              kv_bytes).stages == want
 
 
-@pytest.mark.parametrize("ring_bytes", [24576, 49152])
 @pytest.mark.parametrize("hd,kv_bytes,slots", [
-    (112, 2, 1), (64, 2, 4), (16, 1, 1), (16, 2, 4), (256, 4, 4)])
-def test_decode_warps_fit_shared_memory(hd, kv_bytes, slots, ring_bytes,
-                                        monkeypatch):
+    (112, 2, 1), (112, 1, 1), (112, 4, 1), (64, 2, 4), (64, 1, 4),
+    (16, 1, 1), (16, 2, 4), (128, 2, 4), (192, 2, 4), (256, 4, 4)])
+def test_decode_warps_fit_shared_memory(hd, kv_bytes, slots):
     """A plan that fits in one wave takes 8 warps only where their rings
     fit a block's shared memory, else 4; every plan fits."""
-    monkeypatch.setattr(fd_ops, "WARP_RING_BYTES", ring_bytes)
     p = fd_ops.plan_split(1, 1, 1 if slots == 1 else 4, hd, 100, 128, 132,
                           kv_bytes)
     eight = fd_ops.smem_bytes(hd, kv_bytes, p.slots, 8, p.stages)
     assert p.warps == (8 if eight <= fd_ops.SMEM_LIMIT else 4)
     assert fd_ops.smem_bytes(hd, kv_bytes, p.slots, p.warps, p.stages) \
         <= fd_ops.SMEM_LIMIT
-    if ring_bytes == 49152 and hd == 16:
-        assert p.warps == 4          # 128-row tiles of 16 dims, 4 stages
