@@ -21,14 +21,18 @@ that is the ``{"kernels": [...]}`` record, whose ``launches`` sum both
 paths' counts (``launches_by_path`` keeps them apart).
 
 Peak rates used for ``bound_ms`` (NVIDIA H100 SXM data sheet, dense):
-3.35e12 bytes/s device memory, 989e12 op/s for bf16 operands (tensor
-cores), 67e12 op/s for f32 operands.  ``bound_ms`` is the larger of
-(bytes of each input read once + each output written once) / memory rate
-and operations / peak rate for the operand type; for causal attention
-and for decode the operations and bytes counted are those this run's
-data needs (the causal half; the live part of the cache); for the SSD
-scan, the products of the chunked algorithm at the chunk this run fits
-(f32 operands: B, C and the decayed scores are f32).
+3.35e12 bytes/s device memory; for operations the rate of the units the
+kernel uses (``bound_rate`` in each record): 989e12 op/s on the tensor
+cores with bf16 operands (``bf16``), 495e12 with TF32 operands
+(``tf32``), a third of that where each f32 product is three TF32
+products (``tf32x3``), 67e12 op/s on the CUDA cores (``f32``).
+``bound_ms`` is the larger of (bytes of each input read once + each
+output written once) / memory rate and operations / that rate; for
+causal attention and for decode the operations and bytes counted are
+those this run's data needs (the causal half; the live part of the
+cache); for the SSD scan, the products of the chunked algorithm at the
+kernel's own chunk of 64 rows (the ragged last chunk at its length, no
+carried term into the first chunk).
 
 Timings (``ms``, ``plain_ms``, ``library_ms``): device time per call, from
 CUDA events around the replay of a CUDA graph that holds repeated calls,
@@ -51,12 +55,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "tf32x3": 495e12 / 3,
+            "f32": 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.int8: 2e-2}
-# flash_attention's two kernels: bf16 on the tensor cores, f32 on the
-# CUDA cores (the latter also holds the entry point)
+# flash_attention's two kernels, both on the tensor cores: bf16 operands,
+# and f32 operands as three TF32 products (flash_attention.cu is the
+# entry point)
 BF16_SOURCE = "src/repro_torch/csrc/flash_attention_tc.cu"
-F32_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+F32_SOURCE = "src/repro_torch/csrc/flash_attention_f32.cu"
 
 
 def emit(phase: str, **fields) -> None:
@@ -97,9 +103,9 @@ def eager_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple:
+def bound(nbytes: float, ops: float, rate: str) -> tuple:
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = ops / PEAK_OPS[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -159,7 +165,7 @@ def kernels_rmsnorm(gen) -> dict:
     from repro_torch.kernels.rmsnorm import ops, ref
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (576, 4096):
+        for d in (576, 3584, 4096, 7168):
             for rows in (5, 111, 4 * 1024):
                 x = _randn(gen, (rows, d), dtype)
                 s = _randn(gen, (d,), torch.float32) * 0.1 + 1.0
@@ -181,31 +187,35 @@ def kernels_rmsnorm(gen) -> dict:
         x = _randn(gen, (rows, d), dtype)
         s = torch.ones(d, device="cuda")
         el = x.element_size()
-        b_ms, by = bound(2 * rows * d * el + 4 * d, 4 * rows * d,
-                         torch.float32)
+        b_ms, by = bound(2 * rows * d * el + 4 * d, 4 * rows * d, "f32")
         return {"shape": [rows, d], "dtype": str(dtype),
                 "ms": time_ms(lambda: ops.rmsnorm(x, s)),
                 "eager_ms": eager_ms(lambda: ops.rmsnorm(x, s)),
                 "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, s)),
                 "library_ms": time_ms(
                     lambda: F.rms_norm(x, (d,), s.to(dtype), 1e-5)),
-                "bound_ms": b_ms, "bound_by": by}
-    # the serving path's shapes: prefill rows = 4*1024, decode rows = 4
+                "bound_ms": b_ms, "bound_by": by, "bound_rate": "f32"}
+    # the serving paths' shapes: prefill rows = 4*1024, decode rows = 4;
+    # smollm-135m's width 576, zamba2-7b's 3584 (d_model) and 7168 (the
+    # Mamba2 blocks' gated output)
     shapes = [timed(4 * 1024, 576, torch.bfloat16),
-              timed(4, 576, torch.bfloat16)]
+              timed(4, 576, torch.bfloat16),
+              timed(4 * 1024, 3584, torch.bfloat16),
+              timed(4 * 1024, 7168, torch.bfloat16)]
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:34",
             "max_abs_err": worst, "tolerance": {"f32": 2e-5, "bf16": 2e-2},
             **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "bound_rate",
+                                         "library_ms")},
             "timed_shape": "x (4096,576) bf16, scale f32 (prefill, B=4 S=1024)",
             "shapes": shapes}
 
 
 def kernels_flash_attention(gen) -> dict:
-    """bf16 runs the tensor-core kernel, f32 the CUDA-core one; each timed
-    shape names the source of the kernel it ran."""
+    """bf16 runs the bf16 tensor-core kernel, f32 the three-TF32 one; each
+    timed shape names the source of the kernel it ran."""
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops, ref
@@ -231,6 +241,8 @@ def kernels_flash_attention(gen) -> dict:
         ((4, 919, 32, 112), True, (128, 128)),    # zamba smoke wave: prime S
         ((4, 746, 32, 112), True, (128, 128)),    # zamba smoke wave: 2 x 373
         ((4, 1000, 9, 64), True, (128, 128)),     # ragged: tiles fit to 125
+        ((1, 300, 2, 256), True, (128, 128)),     # the largest hd
+        ((2, 77, 2, 16), False, (128, 128)),      # the smallest hd
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, causal, (bq, bkv) in cases:
@@ -241,38 +253,29 @@ def kernels_flash_attention(gen) -> dict:
                         f"tiles={bq}/{bkv}", got, plain(q, k, v, causal),
                         TOL[dtype])
             worst = max(worst, err)
-    # the wrapper's shared-memory formula decides: a tile it says does not
-    # fit raises with its byte count, one it says fits runs and agrees
-    refused, accepted = [], []
+    # nothing is refused: a knob tile of 512 keys runs the kernels' own
+    # tiles at hd 128 and 192 in both dtypes and agrees
+    accepted = []
     for hd in (128, 192):
         for dtype in (torch.bfloat16, torch.float32):
-            need = ops.smem_bytes(512, hd, dtype)
             q = _randn(gen, (1, 512, 2, hd), dtype)
-            try:
-                got = ops.flash_attention(q, q, q, block_q=128, block_kv=512)
-            except ValueError as e:
-                if need <= ops.SMEM_LIMIT or str(need) not in str(e):
-                    raise
-                refused.append(str(e))
-                continue
-            if need > ops.SMEM_LIMIT:
-                raise AssertionError(f"a {need} B tile was not refused")
+            got = ops.flash_attention(q, q, q, block_q=128, block_kv=512)
             worst = max(worst, check(
                 f"flash_attention {dtype} hd{hd} block_kv 512", got,
                 plain(q, q, q, True), TOL[dtype]))
-            accepted.append(f"{dtype} hd {hd} block_kv 512: {need} B")
+            accepted.append(f"{dtype} hd {hd} block_kv 512: "
+                            f"{ops.smem_bytes(hd, dtype)} B")
 
-    # the wrapper's formula (the refusal above, the tests' table) must say
-    # what the library asks for
+    # the wrapper's formula (the tests' table) must say what the library
+    # asks for
     lib = _build.lib()
     for hd in ops.HEAD_DIMS:
-        for dtype, bkv in ((torch.bfloat16, 512), (torch.float32, 64)):
-            got = lib.rt_flash_attention_smem(hd, bkv,
-                                              int(dtype == torch.bfloat16))
-            if got != ops.smem_bytes(bkv, hd, dtype):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = lib.rt_flash_attention_smem(hd, int(dtype == torch.bfloat16))
+            if got != ops.smem_bytes(hd, dtype):
                 raise AssertionError(
                     f"flash_attention smem {dtype} hd {hd}: kernel {got} B, "
-                    f"wrapper {ops.smem_bytes(bkv, hd, dtype)}")
+                    f"wrapper {ops.smem_bytes(hd, dtype)}")
 
     def timed(shape, dtype, tiles=(128, 128)):
         B, S, H, hd = shape
@@ -280,7 +283,8 @@ def kernels_flash_attention(gen) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         el = q.element_size()
         pairs = B * H * S * (S + 1) / 2          # causal (row, col) pairs
-        b_ms, by = bound(4 * B * S * H * hd * el, 4 * pairs * hd, dtype)
+        rate = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+        b_ms, by = bound(4 * B * S * H * hd * el, 4 * pairs * hd, rate)
         run = lambda: ops.flash_attention(q, k, v, block_q=tiles[0],
                                           block_kv=tiles[1])
         return {"shape": list(shape), "dtype": str(dtype),
@@ -292,7 +296,7 @@ def kernels_flash_attention(gen) -> dict:
                 "library_ms": time_ms(
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True), iters=10),
-                "bound_ms": b_ms, "bound_by": by}
+                "bound_ms": b_ms, "bound_by": by, "bound_rate": rate}
     shapes = [timed((4, 1024, 9, 64), torch.bfloat16),
               timed((4, 1024, 9, 64), torch.float32),
               timed((4, 1024, 9, 64), torch.bfloat16, (256, 256)),
@@ -302,18 +306,24 @@ def kernels_flash_attention(gen) -> dict:
               # ragged smollm length
               timed((4, 919, 32, 112), torch.bfloat16),
               timed((4, 746, 32, 112), torch.bfloat16),
-              timed((4, 1000, 9, 64), torch.bfloat16)]
-    # the headline shape is bf16: flash_tc_kernel; f32 runs flash_kernel
+              timed((4, 1000, 9, 64), torch.bfloat16),
+              # zamba2-7b in f32 (the knob space's default compute dtype),
+              # at S 1024 and at the smoke trace's waves
+              timed((4, 1024, 32, 112), torch.float32),
+              timed((4, 919, 32, 112), torch.float32),
+              timed((4, 746, 32, 112), torch.float32)]
+    # the headline shape is bf16: flash_tc_kernel; f32 runs flash_f32_kernel
     return {"name": "flash_attention", "route": "cuda",
             "source": BF16_SOURCE,
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:84",
             "max_abs_err": worst, "tolerance": {"f32": 2e-5, "bf16": 2e-2},
             **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "bound_rate",
+                                         "library_ms")},
             "timed_shape": "q/k/v (4,1024,9,64) bf16 causal, tiles 128/128",
             "head_dims_checked": sorted({c[0][3] for c in cases}),
-            "refused": refused, "accepted": accepted, "shapes": shapes}
+            "accepted": accepted, "shapes": shapes}
 
 
 def kernels_flash_decode(gen) -> dict:
@@ -412,7 +422,8 @@ def kernels_flash_decode(gen) -> dict:
         if ks is not None:
             live += 2 * B * length * Hkv * 4
         nbytes = live + 2 * B * H * hd * q.element_size()   # q in, o out
-        b_ms, by = bound(nbytes, 4 * B * H * length * hd, q.dtype)
+        # the decode kernel's math is on the CUDA cores
+        b_ms, by = bound(nbytes, 4 * B * H * length * hd, "f32")
         lib = None
         if ks is None:   # one library call: the group's heads as query rows
             qg = q.view(B, Hkv, H // Hkv, hd)
@@ -432,7 +443,8 @@ def kernels_flash_decode(gen) -> dict:
                     q, kc, vc, length, ks, vs, block_kv=128)),
                 "plain_ms": time_ms(
                     lambda: plain(q, kc, vc, ks, vs, length)),
-                "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+                "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+                "bound_rate": "f32"}
     # the serving paths' shapes: B=4, cache grown to about 1056 positions
     zamba = (4, 1088, 32, 32, 112)
     glm4, nemotron = (2, 32768, 32, 2, 128), (2, 640, 96, 8, 192)
@@ -447,7 +459,8 @@ def kernels_flash_decode(gen) -> dict:
             "max_abs_err": worst,
             "tolerance": {"f32": 2e-5, "bf16": 2e-2, "int8": 2e-2},
             **{k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
+                                         "bound_by", "bound_rate",
+                                         "library_ms")},
             "timed_shape": "B=4 Smax=2048 H=9 Hkv=3 hd=64 bf16 cache, "
                            "length 1056, block_kv 128",
             "shapes": shapes}
@@ -457,6 +470,7 @@ def kernels_ssm_scan(gen) -> dict:
     from repro_torch.kernels.ssm_scan import ops, ref
     from repro_torch.kernels.tiling import fit_block
     tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py
+    Qk = ops.KERNEL_CHUNK
 
     def make(B, S, H, P, N, xdtype):
         """The reference test's distributions; B/C/dt/la f32 as the model
@@ -468,54 +482,76 @@ def kernels_ssm_scan(gen) -> dict:
         la = -dt * torch.exp(_randn(gen, (H,), torch.float32) * 0.2)
         return X, Bm, Cm, dt, la
 
+    # each case against the kernel's plain version (its own chunk, the
+    # ragged last chunk masked) and against the plain chunked version at
+    # the reference's fitted chunk
     worst, checked = 0.0, []
     cases = [((4, 1024, 112, 64, 64), 256),   # zamba2-7b prefill, B 4
              ((4, 1000, 112, 64, 64), 256),   # ragged: chunk fits to 250
+             ((4, 919, 112, 64, 64), 256),    # zamba smoke wave: prime S
+             ((4, 746, 112, 64, 64), 256),    # zamba smoke wave: 2 x 373
              ((1, 997, 8, 64, 64), 256),      # prime S: chunk fits to 1
              ((2, 130, 2, 8, 8), 32),         # tests/test_kernels.py ragged
-             ((1, 64, 2, 16, 8), 16)]
+             ((1, 64, 2, 16, 8), 16),
+             ((3, 61, 11, 32, 16), 256)]      # zamba reduced P, N; 11 heads
     for (B, S, H, P, N), chunk in cases:
         for xdtype in (torch.bfloat16, torch.float32):
             ins = make(B, S, H, P, N, xdtype)
             Y, h = ops.ssm_scan(*ins, chunk=chunk)
-            Yp, hp = ref.ssm_scan_chunked(*ins, fit_block(chunk, S))
             name = f"ssm_scan {xdtype} {(B, S, H, P, N)} chunk={chunk}"
-            worst = max(worst, check(name + " Y", Y, Yp, tol[xdtype]),
-                        check(name + " h", h, hp, tol[xdtype]))
+            for plain, Q in ((ref.ssm_scan_tiled, Qk),
+                             (ref.ssm_scan_chunked, fit_block(chunk, S))):
+                Yp, hp = plain(*ins, Q)
+                worst = max(worst, check(f"{name} Y vs chunk {Q}", Y, Yp,
+                                         tol[xdtype]),
+                            check(f"{name} h vs chunk {Q}", h, hp,
+                                  tol[xdtype]))
             checked.append(name)
+            # calls in a row give the same bits: the tickets and flags are
+            # back at 0 after every call
+            if not all(torch.equal(a, Y) for a, _ in
+                       (ops.ssm_scan(*ins, chunk=chunk) for _ in range(2))):
+                raise AssertionError(f"{name}: repeated calls differ")
 
-    def timed(B, S, chunk=256, H=112, P=64, N=64, xdtype=torch.bfloat16,
-              plain=True):
+    def timed(B, S, chunk=256, H=112, P=64, N=64, xdtype=torch.bfloat16):
         X, Bm, Cm, dt, la = make(B, S, H, P, N, xdtype)
-        Q = fit_block(chunk, S)
         el = X.element_size()
         nbytes = (2 * B * S * H * P * el + 2 * B * S * N * 4
                   + 2 * B * S * H * 4 + B * H * P * N * 4)
-        # multiply-adds the chunked algorithm needs (x2 for operations):
-        # C.B^T over the causal half once per (batch, chunk) -- it is
-        # shared by the heads -- and per (batch, head, chunk) the causal
-        # half of scores.X, C.h^T and the state update X^T.B
-        pairs = Q * (Q + 1) / 2
-        macs = (B * (S // Q) * pairs * N
-                + B * H * (S // Q) * (pairs * P + 2 * Q * P * N))
-        b_ms, by = bound(nbytes, 2 * macs, torch.float32)
+        # multiply-adds of the chunked algorithm at the kernel's chunk,
+        # each chunk at its own length q: C.B^T over the causal half once
+        # per (batch, chunk) -- the heads share it -- and per (batch,
+        # head, chunk) the causal half of scores.X, the state update X^T.B
+        # and, but for the first chunk, the carried term C.h^T
+        macs = 0
+        for c0 in range(0, S, Qk):
+            q = min(Qk, S - c0)
+            pairs = q * (q + 1) / 2
+            macs += B * pairs * N + B * H * (
+                pairs * P + q * P * N * (2 if c0 else 1))
+        rate = "tf32" if xdtype == torch.bfloat16 else "tf32x3"
+        b_ms, by = bound(nbytes, 2 * macs, rate)
         run = lambda: ops.ssm_scan(X, Bm, Cm, dt, la, chunk=chunk)
         return {"shape": {"B": B, "S": S, "H": H, "P": P, "N": N,
-                          "chunk": chunk, "fitted_chunk": Q},
-                "x_dtype": str(xdtype), "ms": time_ms(run, iters=5),
-                "eager_ms": eager_ms(run, iters=5),
-                "plain_ms": time_ms(lambda: ref.ssm_scan_chunked(
-                    X, Bm, Cm, dt, la, Q), iters=2) if plain else None,
-                "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+                          "chunk": chunk, "fitted_chunk": fit_block(chunk, S),
+                          "kernel_chunk": Qk},
+                "x_dtype": str(xdtype), "ms": time_ms(run, iters=10),
+                "eager_ms": eager_ms(run, iters=10),
+                "plain_ms": time_ms(lambda: ref.ssm_scan_tiled(
+                    X, Bm, Cm, dt, la, Qk), iters=2),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+                "bound_rate": rate}
     shapes = [timed(4, 1024), timed(4, 1024, xdtype=torch.float32),
-              timed(1, 1024), timed(4, 1000), timed(4, 997, plain=False)]
+              timed(1, 1024), timed(4, 1000), timed(4, 997),
+              # the zamba smoke trace's waves
+              timed(4, 919), timed(4, 746)]
     return {"name": "ssm_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/ssm_scan.py:73",
             "max_abs_err": worst, "tolerance": {"f32": 1e-4, "bf16": 5e-2},
             **{k: shapes[0][k] for k in ("ms", "eager_ms", "plain_ms",
                                          "bound_ms", "bound_by",
-                                         "library_ms")},
+                                         "bound_rate", "library_ms")},
             "timed_shape": "X (4,1024,112,64) bf16, B/C (4,1024,64) f32, "
                            "dt/la (4,1024,112) f32, chunk 256",
             "library_note": "no single PyTorch call computes chunked SSD",
@@ -789,8 +825,9 @@ def phase_scheduler(arch: str, spec, max_seq: int) -> dict:
         expect["prefills"] += 1
         expect["decode_steps"] += min(
             max(r.max_new_tokens for r in wave) - 1, max_seq - S - 1)
-        # the SSM chunk the kernel path fits to this wave's padded length
-        waves.append({"padded_prompt": S, "ssm_chunk": fit_block(
+        # the SSM chunk the reference would fit to this wave's padded
+        # length (the kernel runs its own chunk whatever it is)
+        waves.append({"padded_prompt": S, "ssm_fitted_chunk": fit_block(
             cfg.ssm_chunk, S) if cfg.family == "hybrid" else None})
     for req, r in zip(done, trace.requests):
         if len(req.generated) != r.max_new_tokens or not all(

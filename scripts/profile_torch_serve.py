@@ -10,9 +10,9 @@ prefill and a window of decode steps on the host clock (ending in a
 synchronise), then traces the same work with ``torch.profiler`` and
 prints, for the prefill and for the decode window, the device-busy share
 (sum of kernel time over wall time) and the kernels by total device
-time, and for the two attention wrappers their calls beside the device
-kernels they launched (one each: the bf16 prefill kernel, the one-launch
-decode kernel).  Needs a CUDA device; prints the card's name and power
+time, and for the two attention wrappers and the scan their calls beside
+the device kernels they launched (one each: the prefill attention
+kernel, the one-launch decode kernel, the scan's one kernel).  Needs a CUDA device; prints the card's name and power
 limit.
 """
 from __future__ import annotations
@@ -80,10 +80,13 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
-    wrappers = {"flash_attention": fa, "flash_decode": fd}
+    from repro_torch.kernels.ssm_scan import ops as ssm
+    wrappers = {"flash_attention": fa, "flash_decode": fd, "ssm_scan": ssm}
     # the device kernels each wrapper launches, by symbol
-    port_kernels = {"flash_attention": ("flash_tc_kernel", "flash_kernel"),
-                    "flash_decode": ("decode_kernel",)}
+    port_kernels = {"flash_attention": ("flash_tc_kernel",
+                                        "flash_f32_kernel"),
+                    "flash_decode": ("decode_kernel",),
+                    "ssm_scan": ("ssd_kernel",)}
 
     def traced(fn):
         before = {n: m.launches for n, m in wrappers.items()}
@@ -108,7 +111,9 @@ def main(argv=None) -> int:
                                        if calls else None)}
         return {"wall_ms_traced": ms, "device_busy_ms": busy,
                 "device_busy_share": busy / ms if ms else None,
-                "attention_kernels": per_call,
+                "attention_kernels": {k: per_call[k] for k in
+                                      ("flash_attention", "flash_decode")},
+                "ssm_scan_kernels": per_call["ssm_scan"],
                 "kernels": [{"name": k[:90], "device_ms": t, "calls": c}
                             for k, t, c in rows[:12]]}
 

@@ -1,325 +1,537 @@
-// Chunked Mamba2 / SSD scan for Hopper (sm_90a), forward only.
+// Chunked Mamba2 / SSD scan for Hopper (sm_90a), forward only, on the
+// tensor cores.
 //
 // Replaces: src/repro/kernels/ssm_scan/ssm_scan.py, _ssd_kernel (the
 // Pallas kernel behind ssm_scan_grid / ops.ssm_scan).
-// Computes, for each (batch, head) and each chunk of Q positions, with
-// cum the inclusive cumulative sum of la over the chunk and h the
-// (P x N) state carried from the chunks before:
+// Computes, for each (batch, head) and each chunk of positions, with cum
+// the inclusive cumulative sum of la over the chunk and h the (P x N)
+// state carried from the chunks before:
 //   y_t = sum_{j <= t} (C_t . B_j) exp(cum_t - cum_j) dt_j X_j      (within)
 //       + exp(cum_t) C_t . h                                      (carried)
 //   h  <- exp(cum_last) h + sum_j dt_j exp(cum_last - cum_j) X_j B_j^T
 // which is the per-token recurrence h_t = exp(la_t) h_{t-1} +
 // dt_t X_t B_t^T, y_t = C_t . h_t of the reference's oracle, taken a
-// chunk at a time.  All math is f32, as in the reference, but for the
-// cumulative sum of la over a chunk, which is taken and differenced in
-// f64: cum reaches |cum| ~ 10^2 within a chunk of 256, where an f32 cum
-// is off by ~1e-5, and exp(cum_t - cum_j) turns that into a relative
-// error of every near-diagonal term; two f32 cumsums taken in different
-// orders then disagree by ~1e-3 on outputs near 0 (6.4e-4 measured at
-// S = 1000, chunk 250).  Layouts are the model's: X, Y (B, S, H, P) in
-// f32 or bf16 (Y in X's dtype); Bm, Cm (B, S, N) f32; dt, la (B, S, H)
-// f32; h_final (B, H, P, N) f32.
+// chunk at a time.  Every chunking is the same recurrence (only the
+// rounding differs), so the kernel runs chunks of its own, kQ = 64 rows,
+// at every S and masks the ragged last chunk: the knob's chunk (which
+// the reference fits to a divisor of S, down to 1 at a prime S) is not
+// read here.  Layouts are the model's: X, Y (B, S, H, P) in f32 or bf16
+// (Y in X's dtype); Bm, Cm (B, S, N) f32; dt, la (B, S, H) f32; h_final
+// (B, H, P, N) f32.  P and N: multiples of 8 up to 64.
 //
-// Bound on this card: operations.  Per (batch, head) and chunk the
-// causal half of the Q x Q scores times X, C h^T and the state update
-// are about (Q/2 + 2N) * P multiply-adds per position against
-// 2 * sizeof(X) * P bytes of X and Y per position: at Q = 256, P = N = 64
-// that is some 100 flops per byte, and the operands (B, C, the decayed
-// scores) are f32, so the rate to hold it against is the card's f32 rate.
+// Bound on this card: bytes, at both X dtypes.  Per (batch, head) and
+// chunk of 64 the four products (C.B^T shared by the block's heads, the
+// causal half of scores.X, C.h^T, X^T.(w B)) are about (32 + 2 N) P
+// multiply-adds per position, against 2 * sizeof(X) * P bytes of X and Y:
+// about 70 flops per byte at bf16 X, under the 148 at which TF32 products
+// would take longer than the bytes (and 38 at f32 X, under the 49 of
+// three TF32 products).
 //
-// Design.  The TPU kernel walks the chunks as a sequential grid axis and
-// carries h in VMEM scratch; blocks here run in no order, so ONE block
-// owns a (batch, head) and LOOPS over the chunks, h staying in shared
-// memory (64 x 64 f32).  The Q x Q score matrix (256 KB of f32 at
-// Q = 256) does not fit a block's shared memory: it is formed a 64 x 64
-// tile at a time -- rows t of a row tile against keys j of a key tile,
-// only the key tiles at or before the row tile -- decayed and masked in
-// registers, put in shared memory and multiplied by the key tile's X at
-// once.  The row tile's carried-state term starts its accumulator; the
-// last row tile also accumulates the state update while it has each key
-// tile's B and X in shared memory, so every tile of B, C and X is read
-// from device memory once per (head, row tile).  256 threads each own a
-// 4 x 4 piece of every 64 x 64 product.  P and N up to 64 and any chunk
-// Q >= 1 up to 1024 are right: tiles are zero-padded past P, N and the
-// chunk's end.  A small Q (the wrapper fits the chunk to a divisor of S,
-// so a prime S gives Q = 1) costs whole 64-row tiles per chunk.
-// Fill: B * H blocks of 256 threads, two resident per SM (shared memory
-// 98,816 B each); at B = 4, H = 112 that is 448 blocks for 264 places.
+// Design.
+// - Products on the tensor cores: mma.sync m16n8k8 with TF32 operands and
+//   f32 accumulation.  For bf16 X one TF32 product each (bf16 X is exact
+//   in TF32; B, C, h, w and the decayed scores are cut to TF32, about
+//   2^-10 relative, only as operands).  For f32 X one TF32 product does
+//   not hold 1e-4, so every operand x is split into hi = tf32(x) and
+//   lo = tf32(x - hi) and a product is lo.hi + hi.lo + hi.hi: about the
+//   precision of an f32 product (tf32: the 13 low mantissa bits cleared).
+// - Work unit: one block per (batch, chunk, group of kHG = 8 heads), 8
+//   warps.  The block forms G = C.B^T of its chunk once and keeps it in
+//   shared memory for its heads (B and C have no head axis), then walks
+//   its heads: per head the decayed scores S = G o exp(cum_t - cum_j) o
+//   dt_j (t >= j) go to shared memory, and the head's state contribution
+//   X^T (w o B), its carried term C h^T and its within-chunk term S X are
+//   64 x 64 products of 8 warps of 2 x 2 m16n8 tiles.  A warp's two
+//   m-tiles are (0, 3) or (1, 2) of the chunk's four, so the causal S.X
+//   (row tile m needs key tiles 0..m) is balanced across warps.
+// - The chunks in parallel, the state passed along: the state h entering
+//   chunk c is the state leaving chunk c - 1.  A block computes its
+//   head's state contribution first, then waits until the block of chunk
+//   c - 1 has published that head's state, reads it from L2, publishes
+//   its own (exp(cum_last) h + contribution) and only then forms the
+//   head's outputs.  So the sequential part is one 64 x 64 update per
+//   head and chunk, and the blocks of successive chunks follow one
+//   another head by head.  Blocks take their (chunk, batch, group) from
+//   a ticket in the order they start, chunk-major: a block waits only on
+//   one that started before it, so the waits cannot deadlock however
+//   many blocks are resident.  States live in two slots per (batch,
+//   head) (chunk c writes slot c % 2): chunk c + 1 overwrites the state
+//   chunk c read only after chunk c has published, by which time chunk c
+//   holds it in shared memory.  The last block to finish sets the
+//   tickets and flags back to zero for the next call.
+// - Fill: B * ceil(S / 64) * ceil(H / 8) blocks -- 896 at zamba2-7b's B 4,
+//   S 1024, H 112, and 224 at B 1 -- two resident per SM for bf16 X
+//   (112,896 B of shared memory each), one for f32 X (131,328 B).
+// - Copies overlapped with the math: X of head i + 1 is staged by
+//   cp.async into a two-stage ring while head i is computed; B and C of
+//   the chunk and X of the first head load together.  Rows past S and
+//   columns past P and N are zero-filled by the copy (src-size 0).
+// - The cumulative sum of la over a chunk is taken and differenced in
+//   f64 (one warp per head, shuffles): an f32 cum at |cum| ~ 10^2 is off
+//   by ~1e-5, and exp(cum_t - cum_j) turns that into a relative error of
+//   every near-diagonal term (two f32 orders disagreed by 6.4e-4 at
+//   S = 1000).
+// - Shared memory layouts are chosen so every fragment load hits 32
+//   banks: operands read as A[m][k] or B[n][k] have rows of 68 floats,
+//   those read as A[k][m] or B[k][n] rows of 72 elements.
+//
+// What differs from the reference.  The reference runs the fitted chunk;
+// here the chunk is 64 rows at every S (the same recurrence; rounding
+// differs).  The operands of the products are TF32 (bf16 X) or split
+// into two TF32 parts (f32 X), and the tensor cores add in their own
+// order.  Within 1e-4 (f32 X) and 5e-2 (bf16 X) of the plain version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
-constexpr int kT = 64;            // tile edge; also the largest P and N
-constexpr int kPad = kT + 1;      // row stride of the transposed tiles
-constexpr int kThreads = 256;     // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kMaxChunk = 1024;
-constexpr size_t kSmemBytes = sizeof(double) * kMaxChunk +
-                              sizeof(float) * (2 * kT * kPad + 3 * kT * kT +
-                                               2 * kMaxChunk);
+using namespace ptx;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+constexpr int kQ = 64;          // rows of a chunk; also the largest P, N
+constexpr int kHG = 8;          // heads per block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLdR = 68;        // row stride of A[m][k] / B[n][k] tiles
+constexpr int kLdC = 72;        // row stride of A[k][m] / B[k][n] tiles
+constexpr int kTile = kQ * kLdR;
+constexpr long long kSpinLimit = 1LL << 32;   // clocks: seconds on this card
+
+template <typename T> struct Smem {
+  // cs, gs, ss, hs (kLdR rows), bs (kLdC), the X ring, then cum (f64),
+  // dt, w
+  static constexpr int kRing = 2 * kQ * kLdC;
+  static constexpr int kBytes = 4 * kTile * 4 + kQ * kLdC * 4 +
+                                kRing * (int)sizeof(T) +
+                                kHG * kQ * 8 + kHG * kQ * 4 + kQ * 4;
+};
+
+__device__ __forceinline__ float val(const float* p) { return *p; }
+__device__ __forceinline__ float val(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+// The operands of one m16n8k8 product, TF32, split into (hi, lo) when
+// SPLIT.  Fragment positions (g = lane / 4, t = lane % 4):
+// a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}.
+template <bool SPLIT> struct Frag {
+  uint32_t a_hi[2][4], a_lo[2][4];   // two m-tiles
+  uint32_t b_hi[2][2], b_lo[2][2];   // two n-tiles
+  __device__ __forceinline__ void set_a(int mt, int e, float x) {
+    if (SPLIT) split_tf32(x, a_hi[mt][e], a_lo[mt][e]);
+    else a_hi[mt][e] = tf32(x);
+  }
+  __device__ __forceinline__ void set_b(int nt, int e, float x) {
+    if (SPLIT) split_tf32(x, b_hi[nt][e], b_lo[nt][e]);
+    else b_hi[nt][e] = tf32(x);
+  }
+  __device__ __forceinline__ void mma(float (*acc)[2][4], int mt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      if (SPLIT)
+        mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi[nt], b_lo[nt]);
+      else
+        mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt][0], b_hi[nt][1]);
+    }
+  }
+};
+
+// A[m][k] at base[k * ld + m]
+template <bool SPLIT, typename E>
+__device__ __forceinline__ void load_a_km(Frag<SPLIT>& f, int mt,
+                                          const E* base, int ld, int m0,
+                                          int k0, int g, int t) {
+  const E* p = base + (k0 + t) * ld + m0 + g;
+  f.set_a(mt, 0, val(p));
+  f.set_a(mt, 1, val(p + 8));
+  f.set_a(mt, 2, val(p + 4 * ld));
+  f.set_a(mt, 3, val(p + 4 * ld + 8));
+}
+// B[k][n] at base[k * ld + n], row k scaled by scale[k] if given
+template <bool SPLIT, typename E>
+__device__ __forceinline__ void load_b_kn(Frag<SPLIT>& f, int nt,
+                                          const E* base, int ld, int k0,
+                                          int n0, int g, int t,
+                                          const float* scale = nullptr) {
+  const E* p = base + (k0 + t) * ld + n0 + g;
+  float b0 = val(p), b1 = val(p + 4 * ld);
+  if (scale) {
+    b0 *= scale[k0 + t];
+    b1 *= scale[k0 + t + 4];
+  }
+  f.set_b(nt, 0, b0);
+  f.set_b(nt, 1, b1);
+}
+// A[m][k] at base[m * ld + k], f32, by one ldmatrix: its four 8 x 8
+// matrices of 16-bit pairs are the fragment's (rows m0.., m0+8..) x
+// (columns k0.., k0+4..)
+template <bool SPLIT>
+__device__ __forceinline__ void ldsm_a(Frag<SPLIT>& f, int mt,
+                                       const float* base, int ld, int m0,
+                                       int k0, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, smem_addr(base + (m0 + (lane & 15)) * ld + k0 +
+                           ((lane >> 4) << 2)));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f.set_a(mt, e, __uint_as_float(r[e]));
+}
+// B[k][n] at base[n * ld + k], f32, for the n-tiles n0 and n0 + 8 by one
+// ldmatrix
+template <bool SPLIT>
+__device__ __forceinline__ void ldsm_b(Frag<SPLIT>& f, const float* base,
+                                       int ld, int n0, int k0, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, smem_addr(base + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
+                                      ld + k0 + (((lane >> 3) & 1) << 2)));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f.set_b(e >> 1, e & 1, __uint_as_float(r[e]));
+}
+
+__device__ __forceinline__ void zero(float (*acc)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+}
+
+// Ticket (sync[0]) and finished-block count (sync[1]), then one publish
+// counter per (chunk, batch, head group): block (c, bg) sets its own to
+// i + 1 once it has published the state of its head i, and the block of
+// chunk c + 1 reads it.  Each counter has one writer.
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, SPLIT ? 1 : 2)
 ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
            const float* __restrict__ Cm, const float* __restrict__ dt,
            const float* __restrict__ la, T* __restrict__ Y,
-           float* __restrict__ h_out, int S, int H, int P, int N, int Q) {
+           float* __restrict__ h_out, float* __restrict__ slots,
+           int* __restrict__ sync, int Bsz, int S, int H, int P, int N,
+           int nc, int ng) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* cum = reinterpret_cast<double*>(smem_raw);  // cumulative la, f64
-  float* cs = reinterpret_cast<float*>(cum + kMaxChunk);  // C, [n][t]
-  float* bs = cs + kT * kPad;      // B of the key tile, [n][j]
-  float* xs = bs + kT * kPad;      // X of the key tile, [j][p]
-  float* ss = xs + kT * kT;        // decayed scores, [j][t]
-  float* hs = ss + kT * kT;        // carried state, [n][p]
-  float* dts = hs + kT * kT;       // dt over the chunk
-  float* ws = dts + kMaxChunk;     // dt_j exp(cum_last - cum_j)
+  float* cs = reinterpret_cast<float*>(smem_raw);   // C [t][n]
+  float* gs = cs + kTile;                            // G [t][j]
+  float* ss = gs + kTile;                            // scores [t][j]
+  float* hs = ss + kTile;                            // h entering [p][n]
+  float* bs = hs + kTile;                            // B [j][n]
+  T* xring = reinterpret_cast<T*>(bs + kQ * kLdC);   // 2 x X [j][p]
+  double* cum = reinterpret_cast<double*>(xring + Smem<T>::kRing);
+  float* dts = reinterpret_cast<float*>(cum + kHG * kQ);
+  float* ws = dts + kHG * kQ;                        // w_j of one head
+  __shared__ int s_ticket;
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int nc = S / Q;
-  const int nt = (Q + kT - 1) / kT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  if (tid == 0) s_ticket = atomicAdd(&sync[0], 1);
+  __syncthreads();
+  const int ticket = s_ticket;
+  const int per_chunk = Bsz * ng;
+  const int c = ticket / per_chunk, bg = ticket % per_chunk;
+  const int b = bg / ng, h0 = (bg % ng) * kHG;
+  const int nh = min(kHG, H - h0);
+  const int c0 = c * kQ, qn = min(kQ, S - c0);
+  int* pub = sync + 2 + ticket;                  // this block's counter
+  const int* prev_pub = pub - per_chunk;          // chunk c - 1's
+
+  // this warp's output tiles: m-tiles (0, 3) or (1, 2), n-tiles n0, n0 + 8
+  const int mt0 = (warp >> 2) ? 1 : 0;
+  const int mrow[2] = {mt0 * 16, (3 - mt0) * 16};
+  const int n0 = (warp & 3) * 16;
+
   const size_t xrow = (size_t)H * P;   // X / Y row stride
-  const T* xb = X + (size_t)b * S * xrow + (size_t)h * P;
-  T* yb = Y + (size_t)b * S * xrow + (size_t)h * P;
-  const float* bb = Bm + (size_t)b * S * N;
-  const float* cb = Cm + (size_t)b * S * N;
-  const float* dtb = dt + (size_t)b * S * H + h;
-  const float* lab = la + (size_t)b * S * H + h;
-
-  for (int i = tid; i < kT * kT; i += kThreads) hs[i] = 0.f;
-
-  for (int c = 0; c < nc; ++c) {
-    const int c0 = c * Q;
-    __syncthreads();   // the previous chunk is done with cum, dts, ws, hs
-    for (int i = tid; i < Q; i += kThreads) {
-      cum[i] = lab[(size_t)(c0 + i) * H];
-      dts[i] = dtb[(size_t)(c0 + i) * H];
+  auto load_x = [&](int i) {
+    T* xs = xring + (i & 1) * kQ * kLdC;
+    const T* src = X + ((size_t)b * S + c0) * xrow + (size_t)(h0 + i) * P;
+    constexpr int V = 16 / sizeof(T);   // elements per 16-byte copy
+    for (int k = tid; k < kQ * (kQ / V); k += kThreads) {
+      const int r = k / (kQ / V), col = (k % (kQ / V)) * V;
+      const bool ok = r < qn && col < P;
+      cp_async16(smem_addr(xs + r * kLdC + col),
+                 ok ? src + (size_t)r * xrow + col : src, ok);
     }
-    __syncthreads();
-    if (tid < 32) {    // inclusive prefix sum of la, 32 at a time
-      double carry = 0.0;
-      for (int base = 0; base < Q; base += 32) {
-        const int i = base + tid;
-        double v = i < Q ? cum[i] : 0.0;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const double u = __shfl_up_sync(0xffffffffu, v, off);
-          if (tid >= off) v += u;
-        }
-        v += carry;
-        if (i < Q) cum[i] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
+  };
+
+  // C, B and the first head's X in flight together
+  {
+    const float* cb = Cm + ((size_t)b * S + c0) * N;
+    const float* bb = Bm + ((size_t)b * S + c0) * N;
+    for (int k = tid; k < kQ * (kQ / 4); k += kThreads) {
+      const int r = k / (kQ / 4), col = (k % (kQ / 4)) * 4;
+      const bool ok = r < qn && col < N;
+      const size_t off = ok ? (size_t)r * N + col : 0;
+      cp_async16(smem_addr(cs + r * kLdR + col), cb + off, ok);
+      cp_async16(smem_addr(bs + r * kLdC + col), bb + off, ok);
     }
-    __syncthreads();
-    const double cum_last = cum[Q - 1];
-    for (int i = tid; i < Q; i += kThreads)
-      ws[i] = dts[i] * expf((float)(cum_last - cum[i]));
-
-    float hacc[4][4];
+    load_x(0);
+    cp_async_commit();
+  }
+  // dt and the cumulative sum of la (f64), one warp per head; rows past
+  // S get dt = la = 0, so they add nothing and cum_last = cum[qn - 1]
+  if (warp < nh) {
+    const size_t at = ((size_t)b * S + c0) * H + h0 + warp;
+    double v[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int half = 0; half < 2; ++half) {
+      const int r = lane + 32 * half;
+      const bool ok = r < qn;
+      v[half] = ok ? (double)la[at + (size_t)r * H] : 0.0;
+      dts[warp * kQ + r] = ok ? dt[at + (size_t)r * H] : 0.f;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) hacc[i][m] = 0.f;
-
-    for (int rt = 0; rt < nt; ++rt) {
-      const int r0 = rt * kT;
-      const int rn = min(kT, Q - r0);
-      __syncthreads();   // cs is free, ws is written
-      for (int i = tid; i < kT * kT; i += kThreads) {
-        const int t = i / kT, n = i % kT;
-        cs[n * kPad + t] =
-            (t < rn && n < N) ? cb[(size_t)(c0 + r0 + t) * N + n] : 0.f;
-      }
-      __syncthreads();
-
-      // carried-state term: acc[t][p] = exp(cum_t) * sum_n C_t[n] h[p][n]
-      // (thread: t = ty + 16 i, p = tx + 16 m)
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) acc[i][m] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = cs[n * kPad + ty + 16 * i];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) hv[m] = hs[n * kT + tx + 16 * m];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int m = 0; m < 4; ++m) acc[i][m] = fmaf(cv[i], hv[m], acc[i][m]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        const float e = t < rn ? expf((float)cum[r0 + t]) : 0.f;
-#pragma unroll
-        for (int m = 0; m < 4; ++m) acc[i][m] *= e;
-      }
-
-      const bool last = rt == nt - 1;
-      for (int kt = 0; kt <= rt; ++kt) {
-        const int j0 = kt * kT;
-        const int jn = min(kT, Q - j0);
-        __syncthreads();   // bs, xs, ss are free
-        for (int i = tid; i < kT * kT; i += kThreads) {
-          const int j = i / kT, n = i % kT;
-          const size_t pos = (size_t)(c0 + j0 + j);
-          bs[n * kPad + j] = (j < jn && n < N) ? bb[pos * N + n] : 0.f;
-          xs[j * kT + n] = (j < jn && n < P) ? ld(xb + pos * xrow + n) : 0.f;
-        }
-        __syncthreads();
-
-        // decayed scores, transposed: ss[j][t] = (B_j . C_t) *
-        // exp(cum_t - cum_j) * dt_j for t >= j, else 0
-        // (thread: j = ty + 16 i, t = tx + 16 m)
-        {
-          float s[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int m = 0; m < 4; ++m) s[i][m] = 0.f;
-#pragma unroll 4
-          for (int n = 0; n < N; ++n) {
-            float bv[4], cv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) bv[i] = bs[n * kPad + ty + 16 * i];
-#pragma unroll
-            for (int m = 0; m < 4; ++m) cv[m] = cs[n * kPad + tx + 16 * m];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int m = 0; m < 4; ++m) s[i][m] = fmaf(bv[i], cv[m], s[i][m]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int j = ty + 16 * i, jg = j0 + j;
-#pragma unroll
-            for (int m = 0; m < 4; ++m) {
-              const int t = tx + 16 * m, tg = r0 + t;
-              float val = 0.f;
-              if (j < jn && t < rn && tg >= jg)
-                val = s[i][m] * expf((float)(cum[tg] - cum[jg])) * dts[jg];
-              ss[j * kT + t] = val;
-            }
-          }
-        }
-        __syncthreads();
-
-        // within-chunk term: acc[t][p] += sum_j ss[j][t] * X_j[p]
-#pragma unroll 4
-        for (int j = 0; j < jn; ++j) {
-          float sv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) sv[i] = ss[j * kT + ty + 16 * i];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) xv[m] = xs[j * kT + tx + 16 * m];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int m = 0; m < 4; ++m)
-              acc[i][m] = fmaf(sv[i], xv[m], acc[i][m]);
-        }
-        // state update: hacc[n][p] += sum_j (ws_j B_j[n]) X_j[p]
-        // (thread: n = ty + 16 i, p = tx + 16 m)
-        if (last) {
-#pragma unroll 4
-          for (int j = 0; j < jn; ++j) {
-            const float w = ws[j0 + j];
-            float bv[4], xv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              bv[i] = bs[(ty + 16 * i) * kPad + j] * w;
-#pragma unroll
-            for (int m = 0; m < 4; ++m) xv[m] = xs[j * kT + tx + 16 * m];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int m = 0; m < 4; ++m)
-                hacc[i][m] = fmaf(bv[i], xv[m], hacc[i][m]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        if (t < rn) {
-          T* yrow = yb + (size_t)(c0 + r0 + t) * xrow;
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int p = tx + 16 * m;
-            if (p < P) st(yrow + p, acc[i][m]);
-          }
-        }
+      for (int off = 1; off < 32; off <<= 1) {
+        const double u = __shfl_up_sync(0xffffffffu, v[half], off);
+        if (lane >= off) v[half] += u;
       }
     }
+    v[1] += __shfl_sync(0xffffffffu, v[0], 31);
+    cum[warp * kQ + lane] = v[0];
+    cum[warp * kQ + lane + 32] = v[1];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-    __syncthreads();   // every row tile has read h
-    const float a_chunk = expf((float)cum_last);
+  const int kn = N / 8;                 // k-steps over the state dim
+  const int kj = (qn + 7) / 8;          // k-steps over the chunk's rows
+  float acc[2][2][4];
+
+  // G = C . B^T, once for the block's heads
+  {
+    Frag<SPLIT> f;
+    zero(acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < kQ / 8; ++kk) {
+      if (kk >= kn) break;
+      ldsm_b(f, bs, kLdC, n0, kk * 8, lane);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        float* hp = hs + (ty + 16 * i) * kT + tx + 16 * m;
-        *hp = a_chunk * *hp + hacc[i][m];
+      for (int mt = 0; mt < 2; ++mt) {
+        ldsm_a(f, mt, cs, kLdR, mrow[mt], kk * 8, lane);
+        f.mma(acc, mt);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* p = gs + (mrow[mt] + g) * kLdR + n0 + nt * 8 + 2 * t;
+        st2(p, acc[mt][nt][0], acc[mt][nt][1]);
+        st2(p + 8 * kLdR, acc[mt][nt][2], acc[mt][nt][3]);
       }
   }
 
+  for (int i = 0; i < nh; ++i) {
+    const int hh = h0 + i;
+    if (i + 1 < nh) load_x(i + 1);   // its stage was freed by head i - 1
+    cp_async_commit();
+    cp_async_wait<1>();                // X of head i has landed
+    __syncthreads();                   // ... for all; G is written
+    const T* xs = xring + (i & 1) * kQ * kLdC;
+    const double* cm = cum + i * kQ;
+    const float* dm = dts + i * kQ;
+
+    // decayed scores S[t][j] = G[t][j] exp(cum_t - cum_j) dt_j, t >= j,
+    // and w_j = dt_j exp(cum_last - cum_j)
+    for (int k = tid; k < kQ * kQ; k += kThreads) {
+      const int r = k / kQ, j = k % kQ;
+      ss[r * kLdR + j] = (j <= r && r < qn)
+          ? gs[r * kLdR + j] * expf((float)(cm[r] - cm[j])) * dm[j] : 0.f;
+    }
+    if (tid < kQ) ws[tid] = dm[tid] * expf((float)(cm[kQ - 1] - cm[tid]));
+    __syncthreads();
+
+    // this head's state contribution St[p][n] = sum_j X_j[p] w_j B_j[n]
+    float st[2][2][4];
+    {
+      Frag<SPLIT> f;
+      zero(st);
+#pragma unroll
+      for (int kk = 0; kk < kQ / 8; ++kk) {
+        if (kk >= kj) break;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          load_b_kn(f, nt, bs, kLdC, kk * 8, n0 + nt * 8, g, t, ws);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          load_a_km(f, mt, xs, kLdC, mrow[mt], kk * 8, g, t);
+          f.mma(st, mt);
+        }
+      }
+    }
+
+    // wait for the state entering this chunk (published by the block of
+    // chunk c - 1), publish the state leaving it, keep the entering one
+    // in shared memory for the carried term
+    if (c > 0 && tid == 0) {
+      const long long t0 = clock64();
+      while (*reinterpret_cast<volatile const int*>(prev_pub) <= i) {
+        __nanosleep(32);
+        // a publish that never comes (a fault) traps instead of hanging
+        if (clock64() - t0 > kSpinLimit) __trap();
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    {
+      const float a_chunk = expf((float)cm[kQ - 1]);
+      const size_t hb = ((size_t)b * H + hh) * kQ * kQ;
+      const float* prev = slots + (size_t)((c + 1) & 1) * Bsz * H * kQ * kQ + hb;
+      float* next = slots + (size_t)(c & 1) * Bsz * H * kQ * kQ + hb;
+      const bool last = c == nc - 1;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = mrow[mt] + g + 8 * half;
+            const int n = n0 + nt * 8 + 2 * t;
+            float2 hp = make_float2(0.f, 0.f);
+            if (c > 0)
+              hp = __ldcg(reinterpret_cast<const float2*>(prev + p * kQ + n));
+            const float2 hn =
+                make_float2(a_chunk * hp.x + st[mt][nt][2 * half],
+                            a_chunk * hp.y + st[mt][nt][2 * half + 1]);
+            if (!last) {
+              __stcg(reinterpret_cast<float2*>(next + p * kQ + n), hn);
+            } else if (p < P && n < N) {
+              float* ho = h_out + (((size_t)b * H + hh) * P + p) * N + n;
+              *reinterpret_cast<float2*>(ho) = hn;
+            }
+            st2(hs + p * kLdR + n, hp.x, hp.y);
+          }
+    }
+    // the block's stores, then one fence (cumulative over the barrier),
+    // then the flag
+    __syncthreads();
+    if (tid == 0 && c < nc - 1) {
+      __threadfence();
+      atomicExch(pub, i + 1);
+    }
+
+    // outputs: Y = diag(exp(cum_t)) C h^T + S X
+    zero(acc);
+    if (c > 0) {
+      Frag<SPLIT> f;
+#pragma unroll
+      for (int kk = 0; kk < kQ / 8; ++kk) {
+        if (kk >= kn) break;
+        ldsm_b(f, hs, kLdR, n0, kk * 8, lane);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          ldsm_a(f, mt, cs, kLdR, mrow[mt], kk * 8, lane);
+          f.mma(acc, mt);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float e0 = expf((float)cm[mrow[mt] + g]);
+        const float e1 = expf((float)cm[mrow[mt] + g + 8]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          acc[mt][nt][0] *= e0;
+          acc[mt][nt][1] *= e0;
+          acc[mt][nt][2] *= e1;
+          acc[mt][nt][3] *= e1;
+        }
+      }
+    }
+    {
+      // causal: row tile m needs the key tiles up to its own (2 (m + 1)
+      // k-steps); warp-uniform bounds
+      Frag<SPLIT> f;
+      const int kend = min(kj, 2 * (mrow[1] / 16 + 1));
+#pragma unroll
+      for (int kk = 0; kk < kQ / 8; ++kk) {
+        if (kk >= kend) break;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          load_b_kn(f, nt, xs, kLdC, kk * 8, n0 + nt * 8, g, t);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (kk < 2 * (mrow[mt] / 16 + 1)) {
+            ldsm_a(f, mt, ss, kLdR, mrow[mt], kk * 8, lane);
+            f.mma(acc, mt);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mrow[mt] + g + 8 * half;
+        if (r >= qn) continue;
+        T* yrow = Y + ((size_t)b * S + c0 + r) * xrow + (size_t)hh * P;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int p = n0 + nt * 8 + 2 * t;
+          if (p < P)
+            st2(yrow + p, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        }
+      }
+    __syncthreads();   // ss, hs and this head's X stage are free
+  }
+
+  // the last block to finish sets the tickets and flags back to zero
+  cp_async_wait<0>();
+  const int total = nc * per_chunk;
+  if (tid == 0) s_ticket = atomicAdd(&sync[1], 1) == total - 1;
   __syncthreads();
-  float* ho = h_out + ((size_t)b * H + h) * P * N;
-  for (int i = tid; i < P * N; i += kThreads) {
-    const int p = i / N, n = i % N;
-    ho[i] = hs[n * kT + p];
+  if (s_ticket) {
+    for (int k = tid; k < total; k += kThreads) sync[2 + k] = 0;
+    if (tid == 0) sync[0] = sync[1] = 0;
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 cudaError_t launch(const void* X, const float* Bm, const float* Cm,
                    const float* dt, const float* la, void* Y, float* h_out,
-                   int B, int S, int H, int P, int N, int Q,
-                   cudaStream_t stream) {
+                   float* slots, int* sync, int B, int S, int H, int P,
+                   int N, cudaStream_t stream) {
+  constexpr int smem = Smem<T>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      ssd_kernel<T, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  ssd_kernel<T><<<dim3(H, B), kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(X), Bm, Cm, dt, la, static_cast<T*>(Y), h_out, S,
-      H, P, N, Q);
+  const int nc = (S + kQ - 1) / kQ, ng = (H + kHG - 1) / kHG;
+  const long long blocks = (long long)nc * B * ng;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  ssd_kernel<T, SPLIT><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(X), Bm, Cm, dt, la, static_cast<T*>(Y), h_out,
+      slots, sync, B, S, H, P, N, nc, ng);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// slots: 2 * B * H * 64 * 64 f32 of scratch; sync: sync_len ints, at
+// least 2 + ceil(S / 64) * B * ceil(H / 8), zero before the first call,
+// left at zero by every call.
 extern "C" int rt_ssm_scan(const void* X, const void* Bm, const void* Cm,
                            const void* dt, const void* la, void* Y,
-                           void* h_out, int B, int S, int H, int P, int N,
-                           int Q, int x_is_bf16, void* stream) {
+                           void* h_out, void* slots, void* sync,
+                           long long sync_len, int B, int S, int H, int P,
+                           int N, int x_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || B > 65535 || S <= 0 || H <= 0 || P <= 0 || P > kT ||
-      N <= 0 || N > kT || Q <= 0 || Q > kMaxChunk || S % Q != 0)
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > kQ || P % 8 != 0 ||
+      N <= 0 || N > kQ || N % 8 != 0 ||
+      sync_len < 2 + (long long)((S + kQ - 1) / kQ) * B * ((H + kHG - 1) / kHG))
     return (int)cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(Bm);
   const float* c = static_cast<const float*>(Cm);
   const float* d = static_cast<const float*>(dt);
   const float* l = static_cast<const float*>(la);
   float* ho = static_cast<float*>(h_out);
+  float* sl = static_cast<float*>(slots);
+  int* sy = static_cast<int*>(sync);
   return (int)(x_is_bf16
-                   ? launch<__nv_bfloat16>(X, b, c, d, l, Y, ho, B, S, H, P,
-                                           N, Q, s)
-                   : launch<float>(X, b, c, d, l, Y, ho, B, S, H, P, N, Q,
-                                   s));
+                   ? launch<__nv_bfloat16, false>(X, b, c, d, l, Y, ho, sl,
+                                                  sy, B, S, H, P, N, s)
+                   : launch<float, true>(X, b, c, d, l, Y, ho, sl, sy, B, S,
+                                         H, P, N, s));
 }

@@ -32,11 +32,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES: Dict[str, List] = {
     # x, scale, y, rows, d, eps, x_is_bf16, scale_is_bf16, stream
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # q, k, v, o, B, S, H, hd, block_q, block_kv, causal, is_bf16, stream
-    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # hd, block_kv, is_bf16 -> shared-memory bytes of one block (not an
-    # error code)
-    "rt_flash_attention_smem": [_I, _I, _I],
+    # q, k, v, o, B, S, H, hd, causal, is_bf16, stream
+    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # hd, is_bf16 -> shared-memory bytes of one block (not an error code)
+    "rt_flash_attention_smem": [_I, _I],
     # q, k, v, k_scale, v_scale, part_m, part_l, part_acc, tickets, out,
     # B, Smax, H, Hkv, hd, length, head slots, span, n_split, warps,
     # stages, kv_kind, q_is_bf16, stream
@@ -46,9 +45,10 @@ _SIGNATURES: Dict[str, List] = {
     # hd, kv_bytes, head slots, warps, stages -> shared-memory bytes of
     # one block (not an error code)
     "rt_flash_decode_smem": [_I, _I, _I, _I, _I],
-    # X, Bm, Cm, dt, la, Y, h_final, B, S, H, P, N, chunk, x_is_bf16, stream
-    "rt_ssm_scan": [_P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _P],
+    # X, Bm, Cm, dt, la, Y, h_final, slots, sync, sync_len, B, S, H, P, N,
+    # x_is_bf16, stream
+    "rt_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                    _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

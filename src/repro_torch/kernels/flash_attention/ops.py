@@ -1,9 +1,10 @@
 """Public wrapper: (B, S, H, hd) layout used by the model zoo.
 
 A CUDA tensor goes to the hand-written kernels or raises: bf16 to the
-tensor-core kernel (csrc/flash_attention_tc.cu), f32 to the CUDA-core
-kernel (csrc/flash_attention.cu).  A CPU tensor takes the plain version
-(ref.py), and only because it lies on the CPU.
+bf16 tensor-core kernel (csrc/flash_attention_tc.cu), f32 to the TF32
+tensor-core kernel with split operands (csrc/flash_attention_f32.cu).  A
+CPU tensor takes the plain version (ref.py), and only because it lies on
+the CPU.
 """
 from __future__ import annotations
 
@@ -11,11 +12,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.tiling import fit_block
 
 SMEM_LIMIT = 232_448      # dynamic shared memory one block can have
 HEAD_DIMS = tuple(range(16, 257, 16))   # every multiple of 16 up to 256
-TC_STAGES = 2             # K/V stages in the bf16 kernel's ring
+STAGES = 2                # K/V stages in each kernel's ring
 launches = 0              # kernel launches made by this wrapper
 
 
@@ -28,30 +28,34 @@ def tc_tiles(hd: int) -> tuple:
     return (128, 32) if hd <= 128 else (64, 32)
 
 
-def smem_bytes(block_kv: int, hd: int, dtype: torch.dtype) -> int:
-    """Shared memory one block of the kernel for ``dtype`` asks for.
+def f32_tiles(hd: int) -> tuple:
+    """(query rows, keys per stage) of one block of the f32 kernel: 4
+    warps of one 16-row m-tile; 64 keys up to hd 64, 32 above."""
+    return 64, 64 if hd <= 64 else 32
 
-    bf16: the block's Q rows and ``TC_STAGES`` stages of K and V, rows
-    padded by 8 elements; the kernel's own tiles (``tc_tiles``), whatever
-    the knob -- at most 101,376 bytes, at hd 256: it always fits.  f32:
-    one KV tile of ``block_kv`` rows of K and of V."""
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the kernel for ``dtype`` asks for: the
+    block's Q rows and ``STAGES`` stages of K and V, of the kernel's own
+    tiles, whatever the knob.  bf16: rows padded by 8 elements, at most
+    101,376 bytes (hd 256).  f32: rows padded by 4 floats, at most
+    199,680 bytes (hd 256).  Both fit at every head dim."""
     if dtype == torch.bfloat16:
-        bq, bkv = tc_tiles(hd)
-        return (bq + TC_STAGES * 2 * bkv) * (int(hd) + 8) * 2
-    return 2 * int(block_kv) * int(hd) * dtype.itemsize
+        (bq, bkv), pad = tc_tiles(hd), 8
+    else:
+        (bq, bkv), pad = f32_tiles(hd), 4
+    return (bq + STAGES * 2 * bkv) * (int(hd) + pad) * dtype.itemsize
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_kv: int = 128):
     """q/k/v: (B, S, H, hd) (kv already GQA-repeated) -> (B, S, H, hd).
 
-    Blocks are fitted to the largest divisor of S <= the request, as in
-    the reference, so a knob value names the same logical tile in both
-    packages.  The f32 kernel runs the fitted tiles; a (block_kv, hd)
-    whose f32 KV tile does not fit the block's shared memory raises with
-    the byte count and is never refitted.  The bf16 kernel runs its own
-    tiles (``tc_tiles``, ragged edges masked) whatever the knob, and fits
-    at every head dim."""
+    ``block_q`` / ``block_kv`` are the knob's logical tiles, which the
+    reference fits to a divisor of S; they change neither what is
+    computed nor how.  Both kernels run tiles of their own (``tc_tiles``,
+    ``f32_tiles``) at every S, the ragged edge masked, so a prime S does
+    not shrink them, and both fit at every head dim."""
     global launches
     if not q.is_cuda:
         o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -71,16 +75,10 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
         raise ValueError("flash_attention kernel needs B >= 1 and S >= 1")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
-    bq, bkv = fit_block(block_q, S), fit_block(block_kv, S)
-    need = smem_bytes(bkv, hd, q.dtype)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"flash_attention: KV tile block_kv={bkv} x hd={hd} in {q.dtype} "
-            f"needs {need} bytes of shared memory, a block has {SMEM_LIMIT}")
     o = torch.empty_like(q)
     err = _build.lib().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H, hd,
-        bq, bkv, int(bool(causal)), int(q.dtype == torch.bfloat16),
+        int(bool(causal)), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     launches += 1

@@ -9,8 +9,13 @@ the reference's ``_ssd_kernel``, all in f32 but for the cumulative sum of
 ``la`` over a chunk, which is taken and differenced in f64 before each
 exp (as the kernel does: an f32 cumsum at |cum| ~ 10^2 is off by ~1e-5,
 and the exp of its differences carries that to every near-diagonal
-term).  The kernel's wrapper uses it for CPU tensors, and the kernel is
-held against it on the card.
+term).  ``ssm_scan_tiled`` runs it at the kernel's own chunk at any S:
+the sequence is padded to a whole number of chunks with rows that have
+dt = la = 0, which add nothing to the state, and the padded rows' outputs
+are dropped -- the ragged last chunk masked, as the kernel masks it.  The
+kernel's wrapper uses it for CPU tensors, and the kernel is held against
+it (and against ``ssm_scan_chunked`` at the reference's fitted chunk) on
+the card.
 """
 from __future__ import annotations
 
@@ -69,3 +74,17 @@ def ssm_scan_chunked(X, Bm, Cm, dt, la, chunk: int):
         h = (torch.exp(cum[:, -1].to(f32))[:, :, None, None] * h
              + torch.einsum("bjh,bjhp,bjn->bhpn", w, Xc, Bc))
     return torch.cat(ys, dim=1).to(X.dtype), h
+
+
+def ssm_scan_tiled(X, Bm, Cm, dt, la, chunk: int):
+    """``ssm_scan_chunked`` at ``chunk`` rows for any S, the ragged last
+    chunk padded with rows that change nothing (dt = la = 0, X = B = C =
+    0).  Same layouts and results as ``ssm_scan_ref``."""
+    S = X.shape[1]
+    pad = -S % int(chunk)
+    if pad == 0:
+        return ssm_scan_chunked(X, Bm, Cm, dt, la, chunk)
+    grow = lambda t: torch.cat(
+        [t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))], dim=1)
+    Y, h = ssm_scan_chunked(*(grow(t) for t in (X, Bm, Cm, dt, la)), chunk)
+    return Y[:, :S], h

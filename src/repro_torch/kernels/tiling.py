@@ -5,11 +5,11 @@ dimension, so each public wrapper fits the requested block to the
 largest divisor of the dimension that is not larger than the request.
 The wrappers of this package apply ``fit_block`` too, so the logical
 tile a knob value stands for is the same in both packages.  What the
-fitted tile does on the card differs by kernel: the f32 attention
-kernel runs it as its physical tile, flash_decode splits the live cache
-into spans of it, the SSD scan runs its chunk; the bf16 attention
-kernel runs tiles of its own (64 query rows, 64 or 32 keys) with the
-ragged edge masked, so a prime S does not shrink its tiles to 1.
+fitted tile does on the card differs by kernel: flash_decode splits the
+live cache into spans of it; the attention kernels (bf16 and f32) and the
+SSD scan run tiles and chunks of their own at every length, the ragged
+edge masked, so a prime S does not shrink them to 1 -- the fitted tile
+names the logical tile only.
 
 The *tuner* is stricter on purpose: a tile knob that does not divide
 the cell's sequence is a clean deterministic-crash trial

@@ -3,9 +3,10 @@
 Prefill uses the chunkwise-parallel SSD form (within-chunk quadratic
 term + sequential cross-chunk state scan); decode is the O(1) recurrent
 update.  With ``rt.attn_impl == "pallas"`` the scan goes through the
-hand-written ``ssm_scan`` kernel (which fits the chunk to a divisor of
-S); with ``"xla"`` it is ``ssd_chunked`` here, in eager torch ops (which
-pads S to a multiple of the chunk), as in the reference.
+hand-written ``ssm_scan`` kernel (which runs chunks of its own at every
+S, the ragged last chunk masked; the config's chunk names the logical
+tile only); with ``"xla"`` it is ``ssd_chunked`` here, in eager torch ops
+(which pads S to a multiple of the chunk), as in the reference.
 """
 from __future__ import annotations
 

@@ -99,20 +99,20 @@ def test_tc_attention_emulation_matches_reference(S, hd):
 def test_tc_attention_tiles_do_not_follow_the_knob():
     """At a prime S the reference's tiles fit to 1 row; the kernel's are
     its own -- 64 x 64 to hd 64, 128 x 32 to hd 128, 64 x 32 above -- and
-    its shared memory does not depend on block_kv."""
+    its shared memory is the formula of its own tiles."""
     assert fit_block(128, 919) == 1
     assert [fa_ops.tc_tiles(hd) for hd in (16, 64, 80, 112, 128, 144, 256)] \
         == [(64, 64), (64, 64), (128, 32), (128, 32), (128, 32), (64, 32),
             (64, 32)]
     for hd in fa_ops.HEAD_DIMS:
-        sizes = {fa_ops.smem_bytes(b, hd, torch.bfloat16)
-                 for b in (1, 2, 128, 512)}
-        assert len(sizes) == 1
+        bq, bkv = fa_ops.tc_tiles(hd)
+        assert fa_ops.smem_bytes(hd, torch.bfloat16) == \
+            (bq + 2 * 2 * bkv) * (hd + 8) * 2
 
 
 def test_tc_smem_fits_at_every_head_dim():
     """Nothing is refused in bf16 any more: the largest ask is hd 256's."""
-    need = {hd: fa_ops.smem_bytes(512, hd, torch.bfloat16)
+    need = {hd: fa_ops.smem_bytes(hd, torch.bfloat16)
             for hd in fa_ops.HEAD_DIMS}
     assert max(need.values()) == need[256] == 101_376
     assert need[64] == 46_080 and need[112] == 61_440

@@ -138,27 +138,27 @@ def test_wrappers_take_plain_version_only_on_cpu():
 @pytest.mark.parametrize("block_kv,hd,dtype,fits", [
     (128, 64, torch.bfloat16, True), (512, 64, torch.bfloat16, True),
     (256, 128, torch.bfloat16, True), (512, 128, torch.bfloat16, True),
-    (256, 64, torch.float32, True), (512, 64, torch.float32, False),
-    (128, 128, torch.float32, True), (256, 128, torch.float32, False),
+    (256, 64, torch.float32, True), (512, 64, torch.float32, True),
+    (128, 128, torch.float32, True), (256, 128, torch.float32, True),
     (512, 32, torch.float32, True),
     # hd 112 (zamba2-7b, kimi-k2) and 192 (nemotron-4-340b)
     (512, 112, torch.bfloat16, True), (256, 112, torch.float32, True),
-    (512, 112, torch.float32, False), (256, 192, torch.bfloat16, True),
+    (512, 112, torch.float32, True), (256, 192, torch.bfloat16, True),
     (512, 192, torch.bfloat16, True), (128, 192, torch.float32, True),
-    (256, 192, torch.float32, False)])
+    (256, 192, torch.float32, True)])
 def test_flash_attention_smem_table(block_kv, hd, dtype, fits):
-    """f32: one KV tile of block_kv rows of K and V, refused past the
-    block's shared memory.  bf16: the tensor-core kernel's own Q rows and
-    two stages of K and V (64 x 64 to hd 64, 128 x 32 to hd 128, 64 x 32
-    above; rows padded by 8 elements), whatever the knob: it fits at
-    every head dim."""
-    need = fa_ops.smem_bytes(block_kv, hd, dtype)
+    """Both kernels ask for their own Q rows and two stages of K and V,
+    whatever the knob's block_kv.  bf16: 64 x 64 to hd 64, 128 x 32 to hd
+    128, 64 x 32 above, rows padded by 8 elements.  f32: 64 x 64 to hd 64,
+    64 x 32 above, rows padded by 4 floats.  Both fit at every head dim."""
+    need = fa_ops.smem_bytes(hd, dtype)
     if dtype == torch.bfloat16:
         bq, bkv = (64, 64) if hd <= 64 else (128, 32) if hd <= 128 \
             else (64, 32)
         assert need == (bq + 2 * 2 * bkv) * (hd + 8) * 2
     else:
-        assert need == 2 * block_kv * hd * 4
+        bkv = 64 if hd <= 64 else 32
+        assert need == (64 + 2 * 2 * bkv) * (hd + 4) * 4
     assert (need <= fa_ops.SMEM_LIMIT) == fits
 
 
