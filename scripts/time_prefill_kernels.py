@@ -1,62 +1,54 @@
 #!/usr/bin/env python3
-"""Time the prefill kernels of the PyTorch port at the serving paths'
-shapes, through their public wrappers, on one GPU.
+"""Time another tree's prefill kernels at shapes its own chip_smoke.py
+does not time, through the public wrappers, on one GPU.
 
-    python3 scripts/time_prefill_kernels.py [--src DIR] [--out FILE]
+    python3 scripts/time_prefill_kernels.py --src DIR
 
-Imports ``repro_torch`` from ``--src`` (default: this checkout's
-``src``), so the same script times two trees -- say a ``git archive``
-of the parent commit and the working tree -- each in its own process,
-on one card.  Uses only the wrappers' public signatures
-(``ssm_scan``, ``flash_attention``, ``rmsnorm``), which every tree of
-the port shares.  Times are device time per call: repeated calls
-captured in a CUDA graph, the replay timed with CUDA events, inputs warm
-in L2 (as ``chip_smoke.py`` takes them).  Beside attention and rmsnorm,
-the time of one PyTorch call computing the same function
-(``scaled_dot_product_attention``, ``F.rms_norm``), TF32 switched off.
-Prints one JSON object with the card's name and power limit.
+Imports ``repro_torch`` from ``DIR`` (say the ``src`` of a ``git
+archive`` of the parent commit) and times its ``ssm_scan``,
+``flash_attention`` and ``rmsnorm`` with this checkout's
+``chip_smoke.py`` timer, inputs and repeat counts, so the figures stand
+beside that script's.  Uses only the wrappers' public signatures, which
+every tree of the port shares.  Beside attention and rmsnorm, the time of
+one PyTorch call computing the same function, TF32 switched off.  Prints
+one JSON object with the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 import torch
 import torch.nn.functional as F
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
 
-
-def time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+SCAN = ((4, 1024, torch.bfloat16), (4, 1024, torch.float32),
+        (1, 1024, torch.bfloat16), (4, 1000, torch.bfloat16),
+        (4, 997, torch.bfloat16), (4, 919, torch.bfloat16),
+        (4, 746, torch.bfloat16))
+ATTENTION = (((4, 1024, 9, 64), torch.float32),
+             ((4, 1024, 32, 112), torch.float32),
+             ((4, 919, 32, 112), torch.float32),
+             ((4, 746, 32, 112), torch.float32),
+             ((4, 1024, 9, 64), torch.bfloat16),
+             ((4, 1024, 32, 112), torch.bfloat16))
+RMSNORM = (576, 3584, 7168)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--out", default=None)
+    ap.add_argument("--src", required=True,
+                    help="the src directory of the tree to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_prefill_kernels: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    src = pathlib.Path(args.src).resolve()
+    sys.path.insert(0, str(src))
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.ssm_scan import ops as ssm
@@ -65,56 +57,34 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    def randn(shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
     rows = []
-    for B, S, xdtype in ((4, 1024, torch.bfloat16), (4, 1024, torch.float32),
-                         (1, 1024, torch.bfloat16), (4, 1000, torch.bfloat16),
-                         (4, 997, torch.bfloat16), (4, 919, torch.bfloat16),
-                         (4, 746, torch.bfloat16)):
-        H, P, N = 112, 64, 64       # zamba2-7b
-        X = randn((B, S, H, P), xdtype)
-        Bm, Cm = randn((B, S, N)) * 0.5, randn((B, S, N)) * 0.5
-        dt = F.softplus(randn((B, S, H)))
-        la = -dt * torch.exp(randn((H,)) * 0.2)
-        rows.append({"kernel": "ssm_scan", "B": B, "S": S, "H": H, "P": P,
-                     "N": N, "chunk": 256, "x_dtype": str(xdtype),
-                     "ms": time_ms(lambda: ssm.ssm_scan(
-                         X, Bm, Cm, dt, la, chunk=256), iters=5)})
-        del X, Bm, Cm, dt, la
-    for shape, dtype in (((4, 1024, 9, 64), torch.float32),
-                         ((4, 1024, 32, 112), torch.float32),
-                         ((4, 919, 32, 112), torch.float32),
-                         ((4, 746, 32, 112), torch.float32),
-                         ((4, 1024, 9, 64), torch.bfloat16),
-                         ((4, 1024, 32, 112), torch.bfloat16)):
-        q, k, v = (randn(shape, dtype) for _ in range(3))
+    for B, S, xdtype in SCAN:
+        ins = cs.ssm_inputs(gen, B, S, 112, 64, 64, xdtype)   # zamba2-7b
+        rows.append({"kernel": "ssm_scan", "B": B, "S": S, "H": 112,
+                     "P": 64, "N": 64, "chunk": 256, "x_dtype": str(xdtype),
+                     "ms": cs.time_ms(lambda: ssm.ssm_scan(*ins, chunk=256),
+                                      iters=10)})
+        del ins
+    for shape, dtype in ATTENTION:
+        q, k, v = (cs._randn(gen, shape, dtype) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rows.append({
             "kernel": "flash_attention", "shape": list(shape),
             "dtype": str(dtype), "tiles": [128, 128],
-            "ms": time_ms(lambda: fa.flash_attention(q, k, v), iters=3),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), iters=5)})
+            "ms": cs.time_ms(lambda: fa.flash_attention(q, k, v), iters=10),
+            "library_ms": cs.time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=10)})
         del q, k, v, qt, kt, vt
-    for d in (576, 3584, 7168):
-        x = randn((4096, d), torch.bfloat16)
+    for d in RMSNORM:
+        x = cs._randn(gen, (4096, d), torch.bfloat16)
         s = torch.ones(d, device="cuda")
         rows.append({
             "kernel": "rmsnorm", "shape": [4096, d], "dtype": "bfloat16",
-            "ms": time_ms(lambda: rms.rmsnorm(x, s), iters=20),
-            "library_ms": time_ms(lambda: F.rms_norm(
-                x, (d,), s.to(x.dtype), 1e-5), iters=20)})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    report = {"device": smi, "src": str(pathlib.Path(args.src).resolve()),
-              "rows": rows}
-    print(json.dumps(report))
-    if args.out:
-        pathlib.Path(args.out).write_text(json.dumps(report, indent=1) + "\n")
+            "ms": cs.time_ms(lambda: rms.rmsnorm(x, s)),
+            "library_ms": cs.time_ms(lambda: F.rms_norm(
+                x, (d,), s.to(x.dtype), 1e-5))})
+    print(json.dumps({"device": cs.nvidia_smi(), "src": str(src),
+                      "rows": rows}))
     return 0
 
 

@@ -23,18 +23,26 @@
 // chunk of 64 the four products (C.B^T shared by the block's heads, the
 // causal half of scores.X, C.h^T, X^T.(w B)) are about (32 + 2 N) P
 // multiply-adds per position, against 2 * sizeof(X) * P bytes of X and Y:
-// about 70 flops per byte at bf16 X, under the 148 at which TF32 products
-// would take longer than the bytes (and 38 at f32 X, under the 49 of
-// three TF32 products).
+// about 70 flops per byte at bf16 X, under the 295 at which bf16
+// tensor-core products would take longer than the bytes (and 38 at f32
+// X, under the 49 of three TF32 products).  The kernel issues more than
+// that: the split state path below is about 180 TF32 flops per byte at
+// bf16 X, near the 148 at which TF32 products match the bytes.
 //
 // Design.
 // - Products on the tensor cores: mma.sync m16n8k8 with TF32 operands and
-//   f32 accumulation.  For bf16 X one TF32 product each (bf16 X is exact
-//   in TF32; B, C, h, w and the decayed scores are cut to TF32, about
-//   2^-10 relative, only as operands).  For f32 X one TF32 product does
-//   not hold 1e-4, so every operand x is split into hi = tf32(x) and
-//   lo = tf32(x - hi) and a product is lo.hi + hi.lo + hi.hi: about the
-//   precision of an f32 product (tf32: the 13 low mantissa bits cleared).
+//   f32 accumulation.  An f32 operand x that needs f32 precision is split
+//   into hi = tf32(x) and lo = tf32(x - hi), and a product is lo.hi +
+//   hi.lo + hi.hi: about the precision of an f32 product (tf32: the 13
+//   low mantissa bits cleared), where one TF32 product is about 2^-10.
+//   The state path is split at both X dtypes: h_final is f32 and decode
+//   carries it through the rest of generation, so the state update X^T
+//   (w B) and the carried term C h^T keep f32 precision (bf16 X is exact
+//   in TF32, so X^T (w B) takes two products there, hi.lo + hi.hi).
+//   G = C.B^T and the within-chunk S X feed only Y: for bf16 X one TF32
+//   product each (C, B and the decayed scores cut to TF32 only as
+//   operands, under Y's own bf16 rounding), for f32 X three, since one
+//   does not hold 1e-4.
 // - Work unit: one block per (batch, chunk, group of kHG = 8 heads), 8
 //   warps.  The block forms G = C.B^T of its chunk once and keeps it in
 //   shared memory for its heads (B and C have no head axis), then walks
@@ -77,9 +85,10 @@
 //
 // What differs from the reference.  The reference runs the fitted chunk;
 // here the chunk is 64 rows at every S (the same recurrence; rounding
-// differs).  The operands of the products are TF32 (bf16 X) or split
-// into two TF32 parts (f32 X), and the tensor cores add in their own
-// order.  Within 1e-4 (f32 X) and 5e-2 (bf16 X) of the plain version.
+// differs).  The operands of G and S X are TF32 at bf16 X; every other
+// product runs on split operands; the tensor cores add in their own
+// order.  Within 1e-4 (f32 X) and 5e-2 (bf16 X) of the plain version,
+// and h_final within 1e-4 at both.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,34 +128,35 @@ __device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// The operands of one m16n8k8 product, TF32, split into (hi, lo) when
-// SPLIT.  Fragment positions (g = lane / 4, t = lane % 4):
+// The operands of one m16n8k8 product, TF32; A's split into (hi, lo)
+// when SA, B's when SB.  Fragment positions (g = lane / 4, t = lane % 4):
 // a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}.
-template <bool SPLIT> struct Frag {
+// A product is lo.hi + hi.lo + hi.hi of the split operands; the terms of
+// an operand that is not split (lo = 0) are left out.
+template <bool SA, bool SB> struct Frag {
   uint32_t a_hi[2][4], a_lo[2][4];   // two m-tiles
   uint32_t b_hi[2][2], b_lo[2][2];   // two n-tiles
   __device__ __forceinline__ void set_a(int mt, int e, float x) {
-    if (SPLIT) split_tf32(x, a_hi[mt][e], a_lo[mt][e]);
+    if (SA) split_tf32(x, a_hi[mt][e], a_lo[mt][e]);
     else a_hi[mt][e] = tf32(x);
   }
   __device__ __forceinline__ void set_b(int nt, int e, float x) {
-    if (SPLIT) split_tf32(x, b_hi[nt][e], b_lo[nt][e]);
+    if (SB) split_tf32(x, b_hi[nt][e], b_lo[nt][e]);
     else b_hi[nt][e] = tf32(x);
   }
   __device__ __forceinline__ void mma(float (*acc)[2][4], int mt) {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
-      if (SPLIT)
-        mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi[nt], b_lo[nt]);
-      else
-        mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt][0], b_hi[nt][1]);
+      if (SA) mma_tf32(acc[mt][nt], a_lo[mt], b_hi[nt][0], b_hi[nt][1]);
+      if (SB) mma_tf32(acc[mt][nt], a_hi[mt], b_lo[nt][0], b_lo[nt][1]);
+      mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt][0], b_hi[nt][1]);
     }
   }
 };
 
 // A[m][k] at base[k * ld + m]
-template <bool SPLIT, typename E>
-__device__ __forceinline__ void load_a_km(Frag<SPLIT>& f, int mt,
+template <typename F, typename E>
+__device__ __forceinline__ void load_a_km(F& f, int mt,
                                           const E* base, int ld, int m0,
                                           int k0, int g, int t) {
   const E* p = base + (k0 + t) * ld + m0 + g;
@@ -156,8 +166,8 @@ __device__ __forceinline__ void load_a_km(Frag<SPLIT>& f, int mt,
   f.set_a(mt, 3, val(p + 4 * ld + 8));
 }
 // B[k][n] at base[k * ld + n], row k scaled by scale[k] if given
-template <bool SPLIT, typename E>
-__device__ __forceinline__ void load_b_kn(Frag<SPLIT>& f, int nt,
+template <typename F, typename E>
+__device__ __forceinline__ void load_b_kn(F& f, int nt,
                                           const E* base, int ld, int k0,
                                           int n0, int g, int t,
                                           const float* scale = nullptr) {
@@ -173,8 +183,8 @@ __device__ __forceinline__ void load_b_kn(Frag<SPLIT>& f, int nt,
 // A[m][k] at base[m * ld + k], f32, by one ldmatrix: its four 8 x 8
 // matrices of 16-bit pairs are the fragment's (rows m0.., m0+8..) x
 // (columns k0.., k0+4..)
-template <bool SPLIT>
-__device__ __forceinline__ void ldsm_a(Frag<SPLIT>& f, int mt,
+template <typename F>
+__device__ __forceinline__ void ldsm_a(F& f, int mt,
                                        const float* base, int ld, int m0,
                                        int k0, int lane) {
   uint32_t r[4];
@@ -185,8 +195,8 @@ __device__ __forceinline__ void ldsm_a(Frag<SPLIT>& f, int mt,
 }
 // B[k][n] at base[n * ld + k], f32, for the n-tiles n0 and n0 + 8 by one
 // ldmatrix
-template <bool SPLIT>
-__device__ __forceinline__ void ldsm_b(Frag<SPLIT>& f, const float* base,
+template <typename F>
+__device__ __forceinline__ void ldsm_b(F& f, const float* base,
                                        int ld, int n0, int k0, int lane) {
   uint32_t r[4];
   ldmatrix_x4(r, smem_addr(base + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
@@ -302,7 +312,7 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
 
   // G = C . B^T, once for the block's heads
   {
-    Frag<SPLIT> f;
+    Frag<SPLIT, SPLIT> f;
     zero(acc);
 #pragma unroll
     for (int kk = 0; kk < kQ / 8; ++kk) {
@@ -347,7 +357,7 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
     // this head's state contribution St[p][n] = sum_j X_j[p] w_j B_j[n]
     float st[2][2][4];
     {
-      Frag<SPLIT> f;
+      Frag<SPLIT, true> f;   // X exact in TF32 at bf16
       zero(st);
 #pragma unroll
       for (int kk = 0; kk < kQ / 8; ++kk) {
@@ -416,7 +426,7 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
     // outputs: Y = diag(exp(cum_t)) C h^T + S X
     zero(acc);
     if (c > 0) {
-      Frag<SPLIT> f;
+      Frag<true, true> f;
 #pragma unroll
       for (int kk = 0; kk < kQ / 8; ++kk) {
         if (kk >= kn) break;
@@ -443,7 +453,7 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
     {
       // causal: row tile m needs the key tiles up to its own (2 (m + 1)
       // k-steps); warp-uniform bounds
-      Frag<SPLIT> f;
+      Frag<SPLIT, SPLIT> f;
       const int kend = min(kj, 2 * (mrow[1] / 16 + 1));
 #pragma unroll
       for (int kk = 0; kk < kQ / 8; ++kk) {
@@ -509,9 +519,17 @@ cudaError_t launch(const void* X, const float* Bm, const float* Cm,
 
 }  // namespace
 
-// slots: 2 * B * H * 64 * 64 f32 of scratch; sync: sync_len ints, at
-// least 2 + ceil(S / 64) * B * ceil(H / 8), zero before the first call,
-// left at zero by every call.
+// The rows of the kernel's own chunk, and the ints of the sync buffer a
+// call of (B, S, H) needs: a ticket, a count of finished blocks and a flag
+// per block.
+extern "C" int rt_ssm_scan_chunk() { return kQ; }
+extern "C" long long rt_ssm_scan_sync_len(int B, int S, int H) {
+  return 2 + (long long)((S + kQ - 1) / kQ) * B * ((H + kHG - 1) / kHG);
+}
+
+// slots: 2 * B * H * 64 * 64 f32 of scratch; sync: at least
+// rt_ssm_scan_sync_len(B, S, H) ints, zero before the first call, left
+// at zero by every call.
 extern "C" int rt_ssm_scan(const void* X, const void* Bm, const void* Cm,
                            const void* dt, const void* la, void* Y,
                            void* h_out, void* slots, void* sync,
@@ -520,7 +538,7 @@ extern "C" int rt_ssm_scan(const void* X, const void* Bm, const void* Cm,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > kQ || P % 8 != 0 ||
       N <= 0 || N > kQ || N % 8 != 0 ||
-      sync_len < 2 + (long long)((S + kQ - 1) / kQ) * B * ((H + kHG - 1) / kHG))
+      sync_len < rt_ssm_scan_sync_len(B, S, H))
     return (int)cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(Bm);
   const float* c = static_cast<const float*>(Cm);

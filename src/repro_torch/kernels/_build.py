@@ -49,7 +49,13 @@ _SIGNATURES: Dict[str, List] = {
     # x_is_bf16, stream
     "rt_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                     _I, _I, _I, _I, _I, _I, _P],
+    # -> rows of the scan's own chunk (not an error code)
+    "rt_ssm_scan_chunk": [],
+    # B, S, H -> ints of the scan's sync buffer (a long long)
+    "rt_ssm_scan_sync_len": [_I, _I, _I],
 }
+# entry points that return something other than an int
+_RESTYPES = {"rt_ssm_scan_sync_len": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -129,7 +135,7 @@ def lib(verbose: bool = False) -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(loaded, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _lib = loaded
     return _lib
 

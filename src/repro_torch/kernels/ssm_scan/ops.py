@@ -16,10 +16,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_tiled
 
 MAX_STATE = 64       # largest P (head dim) and N (state size)
-# the kernel's kQ and kHG (csrc/ssm_scan.cu), which size its flag buffer;
-# the kernel refuses a buffer too small for them
-KERNEL_CHUNK = 64    # rows of the kernel's own chunk
-HEAD_GROUP = 8       # heads per block of the kernel
+# rows of the kernel's own chunk (kQ in csrc/ssm_scan.cu, which reports it
+# as rt_ssm_scan_chunk()): the chunk of the plain version on the CPU
+KERNEL_CHUNK = 64
 launches = 0         # kernel launches made by this wrapper
 
 # the kernel's tickets and flags per (device, stream): calls on one stream
@@ -76,10 +75,9 @@ def ssm_scan(X, Bm, Cm, dt, la, *, chunk: int = 256):
     slots = torch.empty((2, B, H, MAX_STATE, MAX_STATE), dtype=torch.float32,
                         device=X.device)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    # a ticket, a count of finished blocks, a flag per (chunk, batch, group)
-    blocks = -(-S // KERNEL_CHUNK) * B * -(-H // HEAD_GROUP)
-    sync = _sync_buffer(X.device, stream, 2 + blocks)
-    err = _build.lib().rt_ssm_scan(
+    lib = _build.lib()
+    sync = _sync_buffer(X.device, stream, lib.rt_ssm_scan_sync_len(B, S, H))
+    err = lib.rt_ssm_scan(
         *(t.data_ptr() for t in ins), Y.data_ptr(), h_final.data_ptr(),
         slots.data_ptr(), sync.data_ptr(), sync.numel(), B, S, H, P, N,
         int(X.dtype == torch.bfloat16), stream)

@@ -5,11 +5,12 @@ inputs from a seed.
 
 - ``tf32_ssd``: csrc/ssm_scan.cu -- chunks of the kernel's own 64 rows at
   every S, the ragged last chunk masked; the cumulative sum of la taken
-  and differenced in f64; G = C.B^T, the decayed scores, the state update
-  X^T (w B), the carried term C h^T and the within-chunk term S X as TF32
-  products (bf16 X) or as three TF32 products of split operands (f32 X);
-  the state passed from chunk to chunk in f32; one rounding of Y to X's
-  dtype.
+  and differenced in f64; G = C.B^T and the within-chunk term S X of the
+  decayed scores as TF32 products (bf16 X) or as three TF32 products of
+  split operands (f32 X); the state path -- the state update X^T (w B)
+  and the carried term C h^T -- split at both X dtypes (bf16 X is exact
+  in TF32, so its low part is zero); the state passed from chunk to chunk
+  in f32; one rounding of Y to X's dtype.
 - ``tf32_attention``: csrc/flash_attention_f32.cu -- the kernel's own
   tiles (``f32_tiles``) at every S, Q.K^T and P.V as three TF32 products
   of split operands, scores scaled by scale * log2(e) and exponentiated
@@ -17,7 +18,8 @@ inputs from a seed.
   the denominator clamped at 1e-20.
 
 Tolerances: ssm_scan 1e-4 (f32 X) and 5e-2 (bf16 X), f32 attention 2e-5,
-those of tests/test_kernels.py.  The reference runs its fitted tiles, so
+those of tests/test_kernels.py; the scan's final state is f32 at both X
+dtypes and is held at 1e-4.  The reference runs its fitted tiles, so
 the prime lengths stay small (37, 61): at a prime S its tiles are 1 row.
 """
 import math
@@ -59,12 +61,15 @@ def mm(a, b, three):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def tf32_ssd(X, Bm, Cm, dt, la, Q=64):
+def tf32_ssd(X, Bm, Cm, dt, la, Q=ssm_ops.KERNEL_CHUNK, split_state=True):
     """X (B,S,H,P) f32/bf16; Bm/Cm (B,S,N); dt/la (B,S,H) -> (Y in X's
-    dtype, h (B,H,P,N) f32), chunk by chunk as the kernel computes it."""
+    dtype, h (B,H,P,N) f32), chunk by chunk as the kernel computes it.
+    ``split_state=False`` runs the state path on single TF32 products at
+    bf16 X, the precision the kernel does not use there."""
     B, S, H, P = X.shape
     N = Bm.shape[-1]
     three = X.dtype == torch.float32
+    three_state = three or split_state
     Xf = X.float().permute(0, 2, 1, 3)                  # (B,H,S,P)
     Bf, Cf = Bm.float(), Cm.float()
     dtf, laf = dt.float().transpose(1, 2), la.float().transpose(1, 2)
@@ -87,8 +92,9 @@ def tf32_ssd(X, Bm, Cm, dt, la, Q=64):
         Sc = torch.where(live, G[:, None] * decay * dtc[:, :, None, :],
                          torch.zeros(()))
         w = dtc * torch.exp((cum[..., -1:] - cum).float())     # (B,H,Q)
-        St = mm(Xc.transpose(-1, -2), w[..., None] * Bc[:, None], three)
-        y = mm(Cc[:, None], h.transpose(-1, -2), three) \
+        St = mm(Xc.transpose(-1, -2), w[..., None] * Bc[:, None],
+                three_state)
+        y = mm(Cc[:, None], h.transpose(-1, -2), three_state) \
             * torch.exp(cum.float())[..., None] if c0 else 0.
         y = y + mm(Sc, Xc, three)
         Y[:, :, c0:c0 + q] = y[:, :, :q]
@@ -151,6 +157,9 @@ def ssm_tol(dtype):
         else dict(atol=1e-4, rtol=1e-4)
 
 
+H_TOL = ssm_tol("float32")   # h_final is f32 at both X dtypes
+
+
 @pytest.mark.parametrize("B,S,H,P,N", [
     (1, 37, 2, 16, 8),        # prime: the reference's chunk fits to 1
     (1, 61, 3, 32, 16),       # prime, zamba2-7b-reduced's P and N
@@ -168,12 +177,14 @@ def test_tf32_ssd_emulation_matches_reference(B, S, H, P, N, dtype):
     chunk = 32
     jY, jh = jssm_ops.ssm_scan(jX, jB, jC, jdt, jla, chunk=chunk)
     jYr, jhr = jssm_ref.ssm_scan_ref(jX, jB, jC, jdt, jla)
-    for want, got in ((jY, Y), (jh, h), (jYr, Y), (jhr, h)):
+    for want, got in ((jY, Y), (jYr, Y)):
         np.testing.assert_allclose(t2n(got), j2n(want), **ssm_tol(dtype))
+    for want in (jh, jhr):
+        np.testing.assert_allclose(t2n(h), j2n(want), **H_TOL)
     # the port's plain version runs the kernel's chunk too
     pY, ph = ssm_ops.ssm_scan(tX, tB, tC, tdt, tla, chunk=chunk)
     np.testing.assert_allclose(t2n(pY), j2n(jYr), **ssm_tol(dtype))
-    np.testing.assert_allclose(t2n(ph), j2n(jhr), **ssm_tol(dtype))
+    np.testing.assert_allclose(t2n(ph), j2n(jhr), **H_TOL)
 
 
 def test_ssd_chunk_is_the_kernels_own():
@@ -181,11 +192,28 @@ def test_ssd_chunk_is_the_kernels_own():
     the plain version run chunks of 64 whatever the knob, and the knob's
     chunk changes nothing in the result."""
     assert fit_block(256, 919) == 1 and fit_block(256, 746) == 2
-    assert ssm_ops.KERNEL_CHUNK == 64
+    assert ssm_ops.KERNEL_CHUNK == 64   # kQ in csrc/ssm_scan.cu
     ins = [torch.from_numpy(a) for a in ssm_inputs(1, 67, 2, 8, 8, 0)]
     runs = [ssm_ops.ssm_scan(*ins, chunk=c) for c in (1, 2, 67, 256)]
     for Y, h in runs[1:]:
         assert torch.equal(Y, runs[0][0]) and torch.equal(h, runs[0][1])
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 61, 3, 32, 16),
+                                       (1, 128, 2, 64, 64)])
+def test_ssd_state_needs_split_products_at_bf16_x(B, S, H, P, N):
+    """Why the kernel splits the state path's operands at bf16 X as well:
+    the final state is f32 and held at 1e-4; a state path of single TF32
+    products misses that by about 10x, the split one holds it."""
+    X, Bm, Cm, dt, la = ssm_inputs(B, S, H, P, N, S * P)
+    (jX, tX), (jB, tB), (jC, tC) = (both(a, "bfloat16") for a in (X, Bm, Cm))
+    (jdt, tdt), (jla, tla) = both(dt), both(la)
+    jh = j2n(jssm_ref.ssm_scan_ref(jX, jB, jC, jdt, jla)[1])
+    _, h = tf32_ssd(tX, tB, tC, tdt, tla)
+    np.testing.assert_allclose(t2n(h), jh, **H_TOL)
+    _, h1 = tf32_ssd(tX, tB, tC, tdt, tla, split_state=False)
+    excess = np.abs(t2n(h1) - jh) - H_TOL["rtol"] * np.abs(jh)
+    assert excess.max() > 5 * H_TOL["atol"]
 
 
 def test_single_tf32_does_not_hold_f32_tolerance():
