@@ -42,8 +42,13 @@ carried term into the first chunk).
 Timings (``ms``, ``plain_ms``, ``library_ms``): device time per call, from
 CUDA events around the replay of a CUDA graph that holds repeated calls,
 inputs left warm in L2 as the serving path leaves them; ``eager_ms`` is
-the host's call-to-call time when the wrapper is called from Python.  f32 comparisons run
-with TF32 switched off (``torch.backends.cuda.matmul.allow_tf32 = False``).
+the host's call-to-call time when the wrapper is called from Python
+(the mean over one window of calls), ``eager_min_ms`` the least such
+mean of 30 shorter windows, and ``library_eager_ms`` /
+``library_eager_min_ms`` the same for the library call.  Every input of
+a timed call is made before it is timed (rmsnorm's library call gets
+scale already cast to x's dtype).  f32 comparisons run with TF32
+switched off (``torch.backends.cuda.matmul.allow_tf32 = False``).
 """
 from __future__ import annotations
 
@@ -105,6 +110,13 @@ def eager_ms(fn, iters: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def eager_min_ms(fn, iters: int = 20, windows: int = 30) -> float:
+    """``eager_ms`` over ``windows`` back-to-back windows of ``iters``
+    calls, the least of them: the call's own cost without the stalls of
+    a host shared with other work, which only ever add time."""
+    return min(eager_ms(fn, iters) for _ in range(windows))
 
 
 def rate_for(dtype) -> str:
@@ -174,48 +186,116 @@ def _randn(gen, shape, dtype):
                        dtype=torch.float32).to(dtype)
 
 
-def kernels_rmsnorm(gen) -> dict:
+# rmsnorm's timed shapes (rows, d, x dtype): the serving paths' prefill
+# (4*1024 rows) and decode (4 rows) at smollm-135m's width 576 and
+# zamba2-7b's 3584 (d_model) and 7168 (the Mamba2 blocks' gated output),
+# in bf16 and, at prefill, in f32 (the knob space's default compute dtype)
+RMSNORM_TIMED = ((4 * 1024, 576, torch.bfloat16), (4, 576, torch.bfloat16),
+                 (4 * 1024, 3584, torch.bfloat16),
+                 (4 * 1024, 7168, torch.bfloat16),
+                 (4, 3584, torch.bfloat16), (4, 7168, torch.bfloat16),
+                 (4 * 1024, 576, torch.float32),
+                 (4 * 1024, 3584, torch.float32),
+                 (4 * 1024, 7168, torch.float32))
+
+
+def rmsnorm_timed(gen, ops, rows: int, d: int, dtype) -> dict:
+    """One timed rmsnorm shape through ``ops.rmsnorm`` (this tree's, or
+    another tree's for scripts/time_prefill_kernels.py), scale f32 as the
+    model passes it.  The library's call takes scale in x's dtype, cast
+    once before it is timed; ``library_cast_ms`` times it with the cast
+    inside the timed call, as earlier records of this script did."""
     import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ref
+    x = _randn(gen, (rows, d), dtype)
+    s = torch.ones(d, device="cuda")
+    s_lib = s.to(dtype)
+    b_ms, by = bound(2 * rows * d * x.element_size() + 4 * d,
+                     4 * rows * d, "f32")
+    run = lambda: ops.rmsnorm(x, s)
+    lib = lambda: F.rms_norm(x, (d,), s_lib, 1e-5)
+    return {"shape": [rows, d], "dtype": str(dtype),
+            "ms": time_ms(run), "eager_ms": eager_ms(run),
+            "eager_min_ms": eager_min_ms(run),
+            "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, s)),
+            "library_ms": time_ms(lib), "library_eager_ms": eager_ms(lib),
+            "library_eager_min_ms": eager_min_ms(lib),
+            "library_cast_ms": time_ms(
+                lambda: F.rms_norm(x, (d,), s.to(dtype), 1e-5)),
+            "bound_ms": b_ms, "bound_by": by, "bound_rate": "f32"}
+
+
+def kernels_rmsnorm(gen) -> dict:
     from repro_torch.kernels.rmsnorm import ops, ref
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for d in (576, 3584, 4096, 7168):
-            for rows in (5, 111, 4 * 1024):
-                x = _randn(gen, (rows, d), dtype)
-                s = _randn(gen, (d,), torch.float32) * 0.1 + 1.0
-                err = check(f"rmsnorm {dtype} {rows}x{d}", ops.rmsnorm(x, s),
-                            ref.rmsnorm_ref(x, s), TOL[dtype])
-                worst = max(worst, err)
-    # bf16 scale beside bf16 x, and a 3-D input as the model passes it
-    x = _randn(gen, (4, 37, 576), torch.bfloat16)
-    s = (_randn(gen, (576,), torch.float32) * 0.1 + 1.0).to(torch.bfloat16)
-    worst = max(worst, check("rmsnorm bf16 scale", ops.rmsnorm(x, s),
-                             ref.rmsnorm_ref(x, s), TOL[torch.bfloat16]))
-    # d that is no multiple of the vector width takes the scalar path
-    x = _randn(gen, (7, 577), torch.float32)
-    s = _randn(gen, (577,), torch.float32)
-    worst = max(worst, check("rmsnorm d=577", ops.rmsnorm(x, s),
-                             ref.rmsnorm_ref(x, s), TOL[torch.float32]))
 
-    def timed(rows, d, dtype):
-        x = _randn(gen, (rows, d), dtype)
-        s = torch.ones(d, device="cuda")
-        el = x.element_size()
-        b_ms, by = bound(2 * rows * d * el + 4 * d, 4 * rows * d, "f32")
-        return {"shape": [rows, d], "dtype": str(dtype),
-                "ms": time_ms(lambda: ops.rmsnorm(x, s)),
-                "eager_ms": eager_ms(lambda: ops.rmsnorm(x, s)),
-                "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, s)),
-                "library_ms": time_ms(
-                    lambda: F.rms_norm(x, (d,), s.to(dtype), 1e-5)),
-                "bound_ms": b_ms, "bound_by": by, "bound_rate": "f32"}
-    # the serving paths' shapes: prefill rows = 4*1024, decode rows = 4;
-    # smollm-135m's width 576, zamba2-7b's 3584 (d_model) and 7168 (the
-    # Mamba2 blocks' gated output)
-    shapes = [timed(4 * 1024, 576, torch.bfloat16),
-              timed(4, 576, torch.bfloat16),
-              timed(4 * 1024, 3584, torch.bfloat16),
-              timed(4 * 1024, 7168, torch.bfloat16)]
+    def held(name, x, s):
+        nonlocal worst
+        y = ops.rmsnorm(x, s)
+        worst = max(worst, check(f"rmsnorm {name}", y,
+                                 ref.rmsnorm_ref(x, s), TOL[x.dtype]))
+        return y
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        vec = ops.vec_len(dtype)
+        # the configs' widths (d_model; zamba2-7b's gated 2 * 3584), and
+        # on the general path odd widths and nemotron-4-340b's 18432
+        for d in (576, 1024, 2048, 3584, 4096, 7168, 18432, 577, 4099):
+            if (ops.plan(d, dtype).kind == "general") != (
+                    d in (18432, 577, 4099)):
+                raise AssertionError(f"rmsnorm plan {dtype} d={d}: "
+                                     f"{ops.plan(d, dtype)}")
+            for rows in ((4, 111) if d == 18432 else (4, 111, 4 * 1024)):
+                held(f"{dtype} {rows}x{d}", _randn(gen, (rows, d), dtype),
+                     _randn(gen, (d,), f32) * 0.1 + 1.0)
+        # every class, at the narrowest d that takes it: 111 rows give
+        # several row groups and a ragged last one
+        widest = ops.MAX_THREADS * ops.MAX_VECS * vec
+        for cls in ops.CLASSES:
+            d = next((d for d in range(vec, widest + 1, vec)
+                      if ops.plan(d, dtype)[1:3] == cls), None)
+            if d is None:
+                raise AssertionError(f"rmsnorm {dtype}: no width takes "
+                                     f"class {cls}")
+            held(f"{dtype} 111x{d} class {cls}",
+                 _randn(gen, (111, d), dtype),
+                 _randn(gen, (d,), f32) * 0.1 + 1.0)
+        # a bf16 scale beside x of either dtype, on a class and the
+        # general path
+        for d in (3584, 577):
+            held(f"{dtype} x, bf16 scale, d={d}",
+                 _randn(gen, (111, d), dtype),
+                 (_randn(gen, (d,), f32) * 0.1 + 1.0).to(bf16))
+        # contiguous views off a 16-byte boundary (x, then scale) take
+        # the general path at a class's width
+        for d in (576, 3584):
+            base = _randn(gen, (111 * d + 1,), dtype)
+            sbase = _randn(gen, (d + 1,), f32) * 0.1 + 1.0
+            held(f"{dtype} x at an odd offset, d={d}",
+                 base[1:].view(111, d), sbase[:d])
+            held(f"{dtype} scale at an odd offset, d={d}",
+                 base[:111 * d].view(111, d), sbase[1:])
+        # repeated calls give the same bits, on a class and the general
+        # path
+        for d in (7168, 4099):
+            x = _randn(gen, (4 * 1024, d), dtype)
+            s = _randn(gen, (d,), f32) * 0.1 + 1.0
+            first = held(f"{dtype} repeat d={d}", x, s)
+            if not all(torch.equal(first, ops.rmsnorm(x, s))
+                       for _ in range(3)):
+                raise AssertionError(f"rmsnorm {dtype} d={d}: repeated "
+                                     f"calls differ")
+    # a 3-D input as the model passes it, bf16 scale
+    x = _randn(gen, (4, 37, 576), bf16)
+    held("bf16 (4,37,576), bf16 scale", x,
+         (_randn(gen, (576,), f32) * 0.1 + 1.0).to(bf16))
+
+    shapes = []
+    for rows, d, dtype in RMSNORM_TIMED:
+        row = rmsnorm_timed(gen, ops, rows, d, dtype)
+        row["plan"] = list(ops.plan(d, dtype))
+        shapes.append(row)
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:34",

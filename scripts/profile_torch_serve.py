@@ -10,10 +10,11 @@ prefill and a window of decode steps on the host clock (ending in a
 synchronise), then traces the same work with ``torch.profiler`` and
 prints, for the prefill and for the decode window, the device-busy share
 (sum of kernel time over wall time) and the kernels by total device
-time, and for the two attention wrappers and the scan their calls beside
-the device kernels they launched (one each: the prefill attention
-kernel, the one-launch decode kernel, the scan's one kernel).  Needs a CUDA device; prints the card's name and power
-limit.
+time, and for the two attention wrappers, the scan and rmsnorm their
+calls beside the device kernels they launched (one each: the prefill
+attention kernel, the one-launch decode kernel, the scan's one kernel,
+rmsnorm's one kernel) and those kernels' device time.  Needs a CUDA
+device; prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -80,13 +81,18 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.kernels.ssm_scan import ops as ssm
-    wrappers = {"flash_attention": fa, "flash_decode": fd, "ssm_scan": ssm}
+    wrappers = {"flash_attention": fa, "flash_decode": fd, "ssm_scan": ssm,
+                "rmsnorm": rms}
     # the device kernels each wrapper launches, by symbol
     port_kernels = {"flash_attention": ("flash_tc_kernel",
                                         "flash_f32_kernel"),
                     "flash_decode": ("decode_kernel",),
-                    "ssm_scan": ("ssd_kernel",)}
+                    "ssm_scan": ("ssd_kernel",),
+                    # rmsnorm_rows and rmsnorm_staged; rmsnorm_kernel in
+                    # trees before the width classes
+                    "rmsnorm": ("rmsnorm_",)}
 
     def traced(fn):
         before = {n: m.launches for n, m in wrappers.items()}
@@ -114,6 +120,7 @@ def main(argv=None) -> int:
                 "attention_kernels": {k: per_call[k] for k in
                                       ("flash_attention", "flash_decode")},
                 "ssm_scan_kernels": per_call["ssm_scan"],
+                "rmsnorm_kernels": per_call["rmsnorm"],
                 "kernels": [{"name": k[:90], "device_ms": t, "calls": c}
                             for k, t, c in rows[:12]]}
 

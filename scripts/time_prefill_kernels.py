@@ -2,16 +2,18 @@
 """Time another tree's prefill kernels at shapes its own chip_smoke.py
 does not time, through the public wrappers, on one GPU.
 
-    python3 scripts/time_prefill_kernels.py --src DIR
+    python3 scripts/time_prefill_kernels.py --src DIR [--kernels rmsnorm]
 
 Imports ``repro_torch`` from ``DIR`` (say the ``src`` of a ``git
 archive`` of the parent commit) and times its ``ssm_scan``,
 ``flash_attention`` and ``rmsnorm`` with this checkout's
 ``chip_smoke.py`` timer, inputs and repeat counts, so the figures stand
-beside that script's.  Uses only the wrappers' public signatures, which
-every tree of the port shares.  Beside attention and rmsnorm, the time of
-one PyTorch call computing the same function, TF32 switched off.  Prints
-one JSON object with the card's name and power limit.
+beside that script's; rmsnorm at every shape of ``chip_smoke.RMSNORM_TIMED``
+with ``chip_smoke.rmsnorm_timed`` (device and host call-to-call times).
+Uses only the wrappers' public signatures, which every tree of the port
+shares.  Beside attention and rmsnorm, the time of one PyTorch call
+computing the same function, TF32 switched off.  Prints one JSON object
+with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -36,13 +38,14 @@ ATTENTION = (((4, 1024, 9, 64), torch.float32),
              ((4, 746, 32, 112), torch.float32),
              ((4, 1024, 9, 64), torch.bfloat16),
              ((4, 1024, 32, 112), torch.bfloat16))
-RMSNORM = (576, 3584, 7168)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the src directory of the tree to time")
+    ap.add_argument("--kernels", default="ssm_scan,flash_attention,rmsnorm",
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_prefill_kernels: no CUDA device", file=sys.stderr)
@@ -58,14 +61,15 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
 
     rows = []
-    for B, S, xdtype in SCAN:
+    only = set(args.kernels.split(","))
+    for B, S, xdtype in SCAN if "ssm_scan" in only else ():
         ins = cs.ssm_inputs(gen, B, S, 112, 64, 64, xdtype)   # zamba2-7b
         rows.append({"kernel": "ssm_scan", "B": B, "S": S, "H": 112,
                      "P": 64, "N": 64, "chunk": 256, "x_dtype": str(xdtype),
                      "ms": cs.time_ms(lambda: ssm.ssm_scan(*ins, chunk=256),
                                       iters=10)})
         del ins
-    for shape, dtype in ATTENTION:
+    for shape, dtype in ATTENTION if "flash_attention" in only else ():
         q, k, v = (cs._randn(gen, shape, dtype) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rows.append({
@@ -75,14 +79,9 @@ def main(argv=None) -> int:
             "library_ms": cs.time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), iters=10)})
         del q, k, v, qt, kt, vt
-    for d in RMSNORM:
-        x = cs._randn(gen, (4096, d), torch.bfloat16)
-        s = torch.ones(d, device="cuda")
-        rows.append({
-            "kernel": "rmsnorm", "shape": [4096, d], "dtype": "bfloat16",
-            "ms": cs.time_ms(lambda: rms.rmsnorm(x, s)),
-            "library_ms": cs.time_ms(lambda: F.rms_norm(
-                x, (d,), s.to(x.dtype), 1e-5))})
+    for n, d, dtype in cs.RMSNORM_TIMED if "rmsnorm" in only else ():
+        rows.append({"kernel": "rmsnorm",
+                     **cs.rmsnorm_timed(gen, rms, n, d, dtype)})
     print(json.dumps({"device": cs.nvidia_smi(), "src": str(src),
                       "rows": rows}))
     return 0

@@ -30,8 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types (every one returns the
 # cudaError_t of its launch as an int)
 _SIGNATURES: Dict[str, List] = {
-    # x, scale, y, rows, d, eps, x_is_bf16, scale_is_bf16, stream
-    "rt_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, scale, y, rows, d, eps, plan (rmsnorm/ops.plan_code), stream
+    "rt_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     # q, k, v, o, B, S, H, hd, causal, is_bf16, stream
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # hd, is_bf16 -> shared-memory bytes of one block (not an error code)
