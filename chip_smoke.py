@@ -11,14 +11,24 @@ hand-written CUDA kernels from ``src/repro_torch/csrc`` and holds each
 against its plain PyTorch version on the card, and shows by the
 wrappers' launch counters that each path went through its kernels.
 
-Phases, one JSON line each: env, build, kernels, agree (kernel path vs
-eager path of the whole model, per model), then for each model serve,
-scheduler and launches (every counter set to 0 just before the path and
-read right after it).  Any failure raises and the run exits non-zero.
+Phases, one JSON line each: env, build, kernels, kernel_cells (each
+kernel at the tuner's kernel-cell shapes and tiles, against its plain
+version), agree (kernel path vs eager path of the whole model, per
+model), then for each model serve, scheduler and launches (every counter
+set to 0 just before the path and read right after it), then two
+campaigns of the port's tuner (``repro_torch.launch.tune.tune_campaign``,
+strategy ``tree``, measured re-rank of the top 2, telemetry on), each a
+path of its own for the counters: ``tune`` walks the serve cell
+``serve:smollm-135m:poisson_card`` (smollm-135m at full width and depth)
+and ``tune_kernels`` the four kernel cells
+``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``.
+Checkpoints, timing caches and telemetry go to a fresh temporary
+directory, so no trial is replayed from an earlier run.  Any failure
+raises and the run exits non-zero.
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit; the line before
-that is the ``{"kernels": [...]}`` record, whose ``launches`` sum both
-paths' counts (``launches_by_path`` keeps them apart).
+that is the ``{"kernels": [...]}`` record, whose ``launches`` sum every
+path's counts (``launches_by_path`` keeps them apart).
 
 Peak rates used for ``bound_ms`` (NVIDIA H100 SXM data sheet, dense):
 3.35e12 bytes/s device memory; for operations the card's peak rate for
@@ -57,6 +67,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -76,6 +87,33 @@ F32_SOURCE = "src/repro_torch/csrc/flash_attention_f32.cu"
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+class GcPauses:
+    """The garbage collector's pauses while the block runs (host clock):
+    how many collections, their seconds in all, and the longest."""
+
+    def __enter__(self):
+        import gc
+        self.n, self.seconds, self.longest, self._t0 = 0, 0.0, 0.0, None
+        gc.callbacks.append(self._observe)
+        return self
+
+    def _observe(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            dt = time.perf_counter() - self._t0
+            self.n, self.seconds = self.n + 1, self.seconds + dt
+            self.longest = max(self.longest, dt)
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._observe)
+
+    def summary(self) -> dict:
+        return {"collections": self.n, "seconds": self.seconds,
+                "longest_s": self.longest}
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -1031,6 +1069,197 @@ def main_paths() -> list:
     ]
 
 
+TUNE_CAMPAIGNS = (
+    ("tune", "serve:smollm-135m:poisson_card",
+     ("rmsnorm", "flash_attention", "flash_decode")),
+    ("tune_kernels", "kernel:flash_attention:tiny,kernel:flash_decode:tiny,"
+     "kernel:ssm_scan:tiny,kernel:rmsnorm:tiny",
+     ("rmsnorm", "flash_attention", "flash_decode", "ssm_scan")),
+)
+
+
+def tile_error(spec: str, config: dict):
+    """The error the tuner gives a kernel cell's config whose tile does
+    not fit the cell's sequence (``Knob.validate_tile``), else None:
+    every other crash of a trial is a failure of the path."""
+    from repro_torch.core.kernel_cell import KERNELS, KERNEL_ARCH_PREFIX
+    from repro_torch.core.space import SPACE
+    arch, shape_name = spec.split("__")[:2]
+    if not arch.startswith(KERNEL_ARCH_PREFIX):
+        return None
+    ks = KERNELS[arch[len(KERNEL_ARCH_PREFIX):]]
+    try:
+        for knob in ks.knobs:
+            SPACE[knob].validate_tile(config[knob],
+                                      ks.shapes[shape_name].seq_len)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def phase_kernel_cells(records: list, repeats: int = 2,
+                       quiet: bool = False) -> list:
+    """Each kernel through its tuner cell's builder (core/kernel_cell.py)
+    on the card, at every registered shape and at every combination of
+    its tile knobs' domains that the tuner runs (those ``validate_tile``
+    accepts), against its plain version on the same inputs (the wrapper
+    on CPU copies of them), then called ``repeats`` times more: each
+    output must equal the first bit for bit.  Whether the output moves
+    with the tile is reported: only flash_decode's tile reaches its
+    kernel.  Returns the rows it checked (and emits them unless
+    ``quiet``)."""
+    import itertools
+
+    from repro_torch.core.kernel_cell import KERNELS
+    from repro_torch.core.params import default_config
+    from repro_torch.core.space import SPACE
+    dev = torch.device("cuda")
+    tols = {"ssm_scan": 1e-4}
+    by_name = {rec["name"]: rec for rec in records}
+    rows = []
+    for name, spec in sorted(KERNELS.items()):
+        for shape_name, shape in sorted(spec.shapes.items()):
+            outs = []
+            for tiles in itertools.product(
+                    *(SPACE[k].domain for k in spec.knobs)):
+                delta = dict(zip(spec.knobs, tiles))
+                try:
+                    for knob, tile in delta.items():
+                        SPACE[knob].validate_tile(tile, shape.seq_len)
+                except ValueError:
+                    continue            # the tuner's deterministic crash
+                fn, args = spec.build(shape, default_config(**delta), dev)
+                got = fn(*args)
+                want = fn(*[a.cpu() for a in args])
+                got, want = (got if isinstance(got, tuple) else (got,),
+                             want if isinstance(want, tuple) else (want,))
+                label = ",".join(map(str, tiles))
+                for _ in range(repeats):
+                    again = fn(*args)
+                    again = again if isinstance(again, tuple) else (again,)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(
+                            f"{name}:{shape_name} tiles {label}: the output "
+                            "changed between calls on the same inputs")
+                err = max(check(f"{name}:{shape_name} tiles {label}", g,
+                                w.to(dev), tols.get(name, TOL[g.dtype]))
+                          for g, w in zip(got, want))
+                outs.append(got)
+                rec = by_name[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rows.append({"kernel": name, "shape": shape_name,
+                             "tiles": delta, "max_abs_err": err})
+            rows[-1]["same_output_across_tiles"] = all(
+                bool(torch.equal(a, b)) for out in outs[1:]
+                for a, b in zip(outs[0], out)) if len(outs) > 1 else None
+    if not quiet:
+        emit("kernel_cells", checked=rows, repeats=repeats)
+    return rows
+
+
+def phase_tune(path: str, specs: str, root: pathlib.Path,
+               device: str = "cuda") -> dict:
+    """One campaign of the port's tuner, as ``tune --cells <specs>
+    --strategy tree --measure-top-k 2 --trace --fresh`` runs it, with
+    checkpoints, timing caches and telemetry under ``root``.  Checks the
+    walk's structure (the winner may differ from run to run: the host
+    clock spreads): every cell within the trial budget, no crashed
+    baseline, no crashed trial but one whose tile does not fit its
+    cell, a finite cost for every trial that did not crash, the reports
+    and campaign.md written, one telemetry span per trial.  Each serve
+    trial's replay costs are reported (``replay_costs``), with the
+    garbage collector's pauses."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.campaign import parse_cells
+    from repro_torch.core.history import config_from_dict
+    from repro_torch.core.quarantine import config_key
+    from repro_torch.core.tree import MAX_TRIALS
+    from repro_torch.launch import tune
+    ckpt = root / path
+    cells = parse_cells(specs)
+    t0 = time.time()
+    try:
+        with GcPauses() as gc_pauses:
+            reports, stats = tune.tune_campaign(
+                cells, fresh=True, checkpoint_dir=ckpt, strategy="tree",
+                measure_top_k=2, trace=True, device=device,
+                timing_dir=ckpt / "timings")
+    finally:
+        telemetry.uninstall()
+    wall = time.time() - t0
+    events = telemetry.read_events(ckpt)
+    spans, replays = {}, {}
+    for e in events:
+        if e["kind"] == "trial":
+            spans.setdefault((e["cell"], e["config"]), []).append(e)
+        elif e["kind"] == "serve.replays":
+            replays.setdefault((e["cell"], e["config"]), []).append(
+                e["costs"])
+    marks = {(e["kind"], e.get("cell")): e["ts"] for e in events
+             if e["kind"] in ("cell.activate", "cell.done")}
+    out = []
+    for spec in cells:
+        key = spec.key()
+        rep = reports[key]
+        if not (ckpt / "reports" / f"{key}.json").exists() \
+                or not (ckpt / "reports" / f"{key}.md").exists():
+            raise AssertionError(f"{path}: no report for {key}")
+        if not 1 <= rep.n_trials <= MAX_TRIALS:
+            raise AssertionError(f"{path}: {key} took {rep.n_trials} trials")
+        base = rep.log[0]
+        if base["name"] != "baseline" or base["result"]["crashed"]:
+            raise AssertionError(f"{path}: {key} baseline crashed: "
+                                 f"{base['result']['error']}")
+        measured = rep.measured or {}
+        rows = [(e["name"], e["delta"], e["config"], e["result"])
+                for e in rep.log]
+        rows += [("measured:" + c["name"], {}, c["config"], c)
+                 for c in measured.get("candidates", [])]
+        trials = []
+        for name, delta, config, res in rows:
+            cost = res["cost_s"]
+            if not res["crashed"] and not 0 < cost < float("inf"):
+                raise AssertionError(f"{path}: {key} {name} cost {cost}")
+            if res["crashed"]:
+                # only a tile that does not fit the cell may crash
+                expected = tile_error(key, config)
+                if expected is None or expected not in res["error"]:
+                    raise AssertionError(f"{path}: {key} {name} crashed: "
+                                         f"{res['error']}")
+            ck = config_key(config_from_dict(config))
+            if not spans.get((key, ck)):
+                raise AssertionError(f"{path}: {key} {name}: no telemetry "
+                                     "span for the trial")
+            span = spans[(key, ck)].pop(0)
+            trials.append({"name": name, "delta": delta, "cost_s": cost,
+                           "crashed": res["crashed"],
+                           "error": res.get("error") or None,
+                           "span_s": span["dur_s"],
+                           "held_s": res.get("compile_s"),
+                           "replay_costs": (replays.get((key, ck)) or
+                                            [None]).pop(0)})
+        final = rep.final_config
+        out.append({
+            "cell": key, "trials": trials,
+            "walk_s": marks[("cell.done", key)]
+            - marks[("cell.activate", key)],
+            "baseline_cost_s": rep.baseline_cost,
+            "winner": {"delta": {k: v for k, v in final.items()
+                                 if base["config"][k] != v},
+                       "cost_s": rep.final_cost, "accepted": rep.accepted},
+            "measured_winner": measured.get("winner_name"),
+            "measured_winner_cost_s": measured.get("winner_cost_s")})
+    if any(spans.values()):
+        raise AssertionError(f"{path}: telemetry spans without a trial")
+    for name in ("campaign.md", "campaign_stats.json", "events.jsonl",
+                 "metrics.json"):
+        if not (ckpt / name).exists():
+            raise AssertionError(f"{path}: {name} not written")
+    return {"cells": out, "wall_s": wall, "gc": gc_pauses.summary(),
+            "evaluated_trials": stats["evaluated_trials"],
+            "measured_evaluations": stats["measured"]["evaluations"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -1050,6 +1279,7 @@ def main(argv=None) -> int:
     smi = phase_env()
     phase_build(args.ptxas)
     records = phase_kernels()
+    phase_kernel_cells(records)
     phase_agree()
     phase_agree_zamba()
     # the main paths: every launch counter is set to 0 just before each
@@ -1059,6 +1289,19 @@ def main(argv=None) -> int:
         for mod in counters().values():
             mod.launches = 0
         by_path[arch] = phase_launches(arch, drive())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as root:
+        for path, specs, expect in TUNE_CAMPAIGNS:
+            for mod in counters().values():
+                mod.launches = 0
+            result = phase_tune(path, specs, pathlib.Path(root))
+            by_path[path] = got = {name: mod.launches
+                                   for name, mod in counters().items()}
+            emit(path, launches=got, **result)
+            for name in expect:
+                if got[name] < 1:
+                    raise AssertionError(f"{path}: {name} was never "
+                                         "launched")
+            torch.cuda.empty_cache()
     for rec in records:
         rec["launches_by_path"] = {a: got[rec["name"]]
                                    for a, got in by_path.items()}

@@ -24,6 +24,8 @@ file); each request carries a derived per-request ``seed`` and
 Named tiny traces live in the :data:`TRACES` registry — they are the
 "shape" axis of ``serve:<arch>:<trace>`` cells (serving/evaluator.py)
 and are small enough to replay through a reduced model on CPU in CI.
+The port adds ``poisson_card``, a coding assistant's traffic that a
+card serves at the arch's published width (``TraceSpec.full_width``).
 
 (The PyTorch port's own copy of the reference's ``serving/traffic.py``:
 the same seed gives the same bytes and the same ``trace_key`` in both
@@ -72,6 +74,12 @@ class TraceSpec:
     # diurnal: sinusoidal rate modulation amplitude + period (virtual s)
     diurnal_amp: float = 0.8
     diurnal_period_s: float = 20.0
+    # how a serve cell replays the trace (the port's own fields; at
+    # their defaults a trace's JSON is the reference's): the arch's
+    # published config instead of its reduced one, and the replays a
+    # trial makes (its cost is the median replay's)
+    full_width: bool = False
+    replays: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +226,10 @@ def generate(spec: TraceSpec) -> Trace:
         "seed": spec.seed,
         "tenants": [dataclasses.asdict(t) for t in spec.tenants],
     }
+    if spec.full_width:
+        meta["full_width"] = True
+    if spec.replays != 1:
+        meta["replays"] = spec.replays
     return Trace(meta, reqs)
 
 
@@ -240,6 +252,21 @@ TRACE_SPECS: Dict[str, TraceSpec] = {
     "diurnal_tiny": TraceSpec(
         name="diurnal_tiny", pattern="diurnal", n_requests=10,
         mean_rate=0.5, seed=4321, tenants=(_CHAT, _BATCH)),
+    # The port's own entry, not in the reference's registry: a coding
+    # assistant's traffic on one card.  Lengths: the Azure LLM inference
+    # trace 2023, code (github.com/Azure/AzurePublicDataset), whose
+    # medians Splitwise reports (arXiv:2311.18677, sec. III: 1500 prompt
+    # and 13 output tokens), drawn uniformly around them.  One tenant:
+    # that trace alone.  The rate is not the trace's: Poisson arrivals
+    # that keep the baseline config busy about four fifths of the time
+    # on one H100 (PERF.md sec. 6).  Replayed at the arch's published
+    # width and depth, five times a trial: the median of five spread 8 %
+    # from trial to trial on the card, of three 14 % (PERF.md sec. 6).
+    "poisson_card": TraceSpec(
+        name="poisson_card", pattern="poisson", n_requests=24,
+        mean_rate=4.0, seed=2026,
+        tenants=(Tenant("code", 1.0, (1000, 2000), (8, 18)),),
+        full_width=True, replays=5),
 }
 
 _TRACE_CACHE: Dict[str, Trace] = {}

@@ -135,7 +135,9 @@ def test_step_budget_is_capped_by_max_seq(weights):
 
 @pytest.mark.parametrize("name", sorted(JT.TRACE_SPECS))
 def test_registered_traces_equal_bytes_and_key(name):
-    assert TT.trace_names() == JT.trace_names()
+    # the port's registry adds its full-width trace, poisson_card
+    assert tuple(n for n in TT.trace_names()
+                 if not TT.TRACE_SPECS[n].full_width) == JT.trace_names()
     a, b = TT.get_trace(name), JT.get_trace(name)
     assert a.to_json() == b.to_json()
     assert a.key() == b.key() == hashlib.sha1(
