@@ -13,18 +13,23 @@ wrappers' launch counters that each path went through its kernels.
 
 Phases, one JSON line each: env, build, kernels, kernel_cells (each
 kernel at the tuner's kernel-cell shapes and tiles, against its plain
-version), agree (kernel path vs eager path of the whole model, per
-model), then for each model serve, scheduler and launches (every counter
-set to 0 just before the path and read right after it), then two
-campaigns of the port's tuner (``repro_torch.launch.tune.tune_campaign``,
-strategy ``tree``, measured re-rank of the top 2, telemetry on), each a
-path of its own for the counters: ``tune`` walks the serve cell
-``serve:smollm-135m:poisson_card`` (smollm-135m at full width and depth)
-and ``tune_kernels`` the four kernel cells
-``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``.
-Checkpoints, timing caches and telemetry go to a fresh temporary
-directory, so no trial is replayed from an earlier run.  Any failure
-raises and the run exits non-zero.
+version, every call after a NaN fill of the SMs' shared memory), agree
+(kernel path vs eager path of the whole model, per model), agree_train
+(one f32 train step on the card against the CPU), then for each model
+serve, scheduler and launches (every counter set to 0 just before the
+path and read right after it), then two campaigns of the port's tuner
+(``repro_torch.launch.tune.tune_campaign``, strategy ``tree``, measured
+re-rank of the top 2, telemetry on), each a path of its own for the
+counters: ``tune`` walks the serve cell ``serve:smollm-135m:poisson_card``
+(smollm-135m at full width and depth) and ``tune_kernels`` the four
+kernel cells ``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``;
+then two more paths: ``train`` (``repro_torch.launch.train`` at full
+width and depth, a stop and a resume; it launches no kernel) and
+``tune_steps`` (single-cell mode on ``smollm-135m:decode_card``, a
+campaign over ``prefill_card`` and ``train_card``).  Checkpoints, timing
+caches and telemetry go to a fresh temporary directory, so no trial is
+replayed from an earlier run.  Any failure raises and the run exits
+non-zero.
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it is the card's name and power limit; the line before
 that is the ``{"kernels": [...]}`` record, whose ``launches`` sum every
@@ -220,7 +225,7 @@ def phase_build(ptxas: bool) -> None:
 
 
 def _randn(gen, shape, dtype):
-    return torch.randn(shape, generator=gen, device="cuda",
+    return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).to(dtype)
 
 
@@ -918,6 +923,275 @@ def phase_agree_zamba() -> None:
          results=out)
 
 
+def _named_leaves(tree, prefix: str = "") -> list:
+    """``[(path, tensor)]`` in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+# the agreement's relative tolerance, and the multiple of f32's own
+# one-rounding floor that replaces it where that floor lies above it
+AGREE_TRAIN_TOL, AGREE_TRAIN_FLOORS = 1e-4, 5
+
+
+def phase_agree_train(device: str = "cuda") -> None:
+    """One train step on the card against the same step on the CPU:
+    smollm-135m's seeded parameters cut to 2 layers at full width, a
+    (1, 256) batch of the data pipeline, f32 compute (TF32 off), AdamW at
+    a constant learning rate of 1e-2 with eps 1e-3: the CPU parity tests'
+    optimizer (tests/test_torch_train.py).  At the default eps of 1e-8 a
+    first update is about lr·sign(g) whatever the gradient's size, so it
+    would hold signs, not values; at 1e-3 it is a smooth function of the
+    clipped gradient (whose elements are ~1e-4 here).
+
+    The loss is held to 1e-5 relative.  The global gradient norm, each
+    parameter's gradient (the step's loss and autograd, eager attention)
+    and the update of the parameters (after the step minus before, every
+    leaf) are held, in the relative Frobenius norm, to ``AGREE_TRAIN_TOL``
+    (1e-4), except where f32's own floor at this point lies above a
+    ``AGREE_TRAIN_FLOORS``-th of that: then to ``AGREE_TRAIN_FLOORS``
+    times the floor.  The floor is measured here on the CPU, for each of
+    these numbers on its own: the same computation with every parameter
+    moved by one rounding unit (2^-23 relative, random signs, two draws).
+    At the reference's initialisation the attention logits have a
+    standard deviation of about 110 (the attention projections take
+    their fan-in from the head axis), so the softmax is nearly one-hot
+    and one rounding unit at the inputs can move a gradient by more than
+    1e-4: a card that rounds differently at every operation cannot come
+    closer than that floor."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.params import default_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import constant_schedule, make_optimizer
+    from repro_torch.runtime.loops import tree_leaves, tree_map
+    from repro_torch.runtime.stepfn import (build_train_step,
+                                            cast_params_for_compute)
+    cfg = get_config("smollm-135m").replace(n_layers=2)
+    shape = ShapeConfig("agree_train", 256, 1, "train")
+    rt = default_config(attn_impl="xla")
+    optimizer = make_optimizer(cfg.optimizer, constant_schedule(1e-2),
+                               eps=1e-3)
+    bundle = build_train_step(cfg, shape, rt, None, optimizer)
+    model = build_model(cfg)
+    master = model.init(0, device="cpu")
+    names = [n for n, _ in _named_leaves(master)]
+    gen = torch.Generator().manual_seed(1)
+
+    def one_ulp(t):
+        signs = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
+        return t * (1 + 2.0 ** -23 * signs)
+
+    def step(dev, start):
+        params = tree_map(lambda t: t.to(dev, copy=True), start)
+        batch = SyntheticLM(cfg, shape, rt, dev).batch_at(0)
+        work = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            loss, _ = model.loss_fn(cast_params_for_compute(work, rt), batch,
+                                    rt, None)
+            grads = torch.autograd.grad(loss, tree_leaves(work))
+        new, _, met = bundle.fn(params, optimizer.init(params), batch)
+        update = [a.cpu() - b for a, b in zip(tree_leaves(new),
+                                               tree_leaves(start))]
+        return (float(met["loss"]), float(met["grad_norm"]),
+                [g.cpu() for g in grads], update)
+
+    def fro(xs, ys):
+        diff = sum(float((x - y).square().sum()) for x, y in zip(xs, ys))
+        norm = sum(float(y.square().sum()) for y in ys)
+        return (diff / norm) ** 0.5 if norm else diff ** 0.5
+
+    def rel(a, b):
+        (la, ga, da, ua), (lb, gb, db, ub) = a, b
+        return {"loss": abs(la - lb) / abs(lb),
+                "grad_norm": abs(ga - gb) / abs(gb),
+                "update_frobenius": fro(ua, ub),
+                "grad": {n: fro([x], [y]) for n, x, y in zip(names, da, db)}}
+
+    card, cpu = step(device, master), step("cpu", master)
+    if not all(bool(torch.isfinite(t).all()) for t in card[2] + card[3]) \
+            or not torch.isfinite(torch.tensor(card[:2])).all():
+        raise AssertionError("agree_train: non-finite output on the card")
+    floors = [rel(step("cpu", tree_map(one_ulp, master)), cpu)
+              for _ in range(2)]
+    got = rel(card, cpu)
+
+    def tol(floor):
+        return max(AGREE_TRAIN_TOL, AGREE_TRAIN_FLOORS * floor)
+    floor = {k: max(f[k] for f in floors)
+             for k in ("grad_norm", "update_frobenius")}
+    floor["grad"] = {n: max(f["grad"][n] for f in floors) for n in names}
+    tols = {"loss": 1e-5, "grad_norm": tol(floor["grad_norm"]),
+            "update_frobenius": tol(floor["update_frobenius"]),
+            "grad": {n: tol(f) for n, f in floor["grad"].items()}}
+    emit("agree_train", loss={"cuda": card[0], "cpu": cpu[0]},
+         grad_norm={"cuda": card[1], "cpu": cpu[1]}, relative=got,
+         one_ulp_floor=floor, tolerance=tols, layers=cfg.n_layers,
+         batch=[1, 256], lr=1e-2, eps=1e-3)
+    over = [(k, got[k], tols[k]) for k in ("loss", "grad_norm",
+                                           "update_frobenius")
+            if got[k] > tols[k]]
+    over += [(f"grad {n}", got["grad"][n], tols["grad"][n]) for n in names
+             if got["grad"][n] > tols["grad"][n]]
+    if over:
+        raise AssertionError(f"agree_train: over tolerance: {over}")
+
+
+def _train_run(argv: list) -> tuple:
+    """``launch/train.py`` in this process (its launches reach the
+    counters) -> (exit code, {step: logged numbers}, output lines)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    lines = buf.getvalue().splitlines()
+    steps = {}
+    for line in lines:
+        f = line.split()
+        if f and f[0] == "step" and len(f) == 9:
+            steps[int(f[1])] = {"loss": float(f[3]), "grad_norm": float(f[5]),
+                                "lr": float(f[7]), "ms": float(f[8][:-2])}
+    return rc, steps, lines
+
+
+TRAIN_ARGS = ["--arch", "smollm-135m", "--seq", "2048", "--batch", "4",
+              "--log-interval", "1", "--ckpt-interval", "6",
+              "--device", "cuda"]
+
+
+def train_busy_share(steps: int = 2) -> dict:
+    """The train step of ``TRAIN_ARGS`` traced by ``torch.profiler`` over
+    ``steps`` steps after one untimed step: device-busy share (the sum of
+    the device kernels' time over the traced window's host time) and the
+    kernels that take the most device time."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.params import default_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import cosine_schedule, make_optimizer
+    from repro_torch.runtime.stepfn import build_train_step
+    cfg = get_config("smollm-135m")
+    shape = ShapeConfig("cli", 2048, 4, "train")
+    rt = default_config(compute_dtype="bfloat16", remat_policy="none")
+    optimizer = make_optimizer(cfg.optimizer, cosine_schedule(3e-4, 10, 12))
+    bundle = build_train_step(cfg, shape, rt, None, optimizer)
+    params = build_model(cfg).init(0, device="cuda")
+    state = [params, optimizer.init(params)]
+    data = SyntheticLM(cfg, shape, rt, "cuda")
+    batches = [data.batch_at(i) for i in range(steps + 1)]
+
+    def step(i):
+        state[0], state[1], _ = bundle.fn(state[0], state[1], batches[i])
+
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            step(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    del state, batches, bundle
+    torch.cuda.empty_cache()
+    return {"steps": steps, "wall_ms_traced": wall_ms,
+            "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+            "kernels": [{"name": k[:90], "device_ms": t, "calls": c}
+                        for k, t, c in rows[:10]],
+            "median_kernel_ms": statistics.median(r[1] for r in rows)}
+
+
+# the run whose loss must fall: at the reference's initialisation (the
+# attention logits' standard deviation about 110, a nearly one-hot
+# softmax) twelve steps at the default learning rate move the loss by
+# batch noise only, so learning is shown over forty steps at 3e-3
+LEARN_STEPS, LEARN_LR = 40, "3e-3"
+
+
+def phase_train(root: pathlib.Path) -> dict:
+    """``launch/train.py`` at full smollm-135m width and depth, seq 2048,
+    batch 4, bf16 compute: 12 steps with a checkpoint every 6 in one
+    directory; then, in a fresh directory, 6 steps and a second run of 12
+    that resumes from the checkpoint of step 5; then ``LEARN_STEPS``
+    steps at ``LEARN_LR``.  Every loss is finite, the mean loss of the
+    last 5 steps of the long run is below that of its first 5, and the
+    resumed run's step-12 loss is within 1e-3 relative of the
+    uninterrupted run's (not bit for bit: the embedding's gradient is
+    summed by atomics on the card).  Reports ms per step (median of steps
+    2-12), tokens per second, peak device memory and the step's
+    device-busy share."""
+    import statistics
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rc, straight, _ = _train_run(TRAIN_ARGS + [
+        "--steps", "12", "--ckpt-dir", str(root / "straight")])
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rc1, first, _ = _train_run(TRAIN_ARGS + [
+        "--steps", "6", "--ckpt-dir", str(root / "resumed")])
+    rc2, resumed, lines = _train_run(TRAIN_ARGS + [
+        "--steps", "12", "--ckpt-dir", str(root / "resumed")])
+    if (rc, rc1, rc2) != (0, 0, 0):
+        raise AssertionError(f"train: exit codes {(rc, rc1, rc2)}")
+    if sorted(straight) != list(range(12)) or sorted(first) != \
+            list(range(6)) or sorted(resumed) != list(range(6, 12)):
+        raise AssertionError(f"train: logged steps {sorted(straight)}, "
+                             f"{sorted(first)}, {sorted(resumed)}")
+    if "resuming from step 5" not in lines:
+        raise AssertionError("train: the second run did not resume from "
+                             "step 5")
+    losses = [r["loss"] for run in (straight, first, resumed)
+              for r in run.values()]
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"train: non-finite loss in {losses}")
+    rcl, longer, _ = _train_run(TRAIN_ARGS + [
+        "--steps", str(LEARN_STEPS), "--lr", LEARN_LR, "--ckpt-interval",
+        "0", "--ckpt-dir", str(root / "learn")])
+    first5 = sum(longer[s]["loss"] for s in range(5)) / 5
+    last5 = sum(longer[s]["loss"] for s in range(LEARN_STEPS - 5,
+                                                 LEARN_STEPS)) / 5
+    if rcl != 0 or not last5 < first5:
+        raise AssertionError(f"train: the loss did not fall over "
+                             f"{LEARN_STEPS} steps: mean of the first 5 "
+                             f"{first5}, of the last 5 {last5}")
+    rel = abs(resumed[11]["loss"] - straight[11]["loss"]) \
+        / abs(straight[11]["loss"])
+    if rel > 1e-3:
+        raise AssertionError(f"train: resumed step-12 loss "
+                             f"{resumed[11]['loss']} against "
+                             f"{straight[11]['loss']} ({rel} relative)")
+    ms = statistics.median(straight[s]["ms"] for s in range(1, 12))
+    ms_resumed = statistics.median(resumed[s]["ms"] for s in range(7, 12))
+    return {"steps": straight, "resumed_steps": resumed,
+            "loss_step_1": straight[0]["loss"],
+            "loss_step_12": straight[11]["loss"],
+            "learn": {"steps": LEARN_STEPS, "lr": LEARN_LR,
+                      "losses": [longer[s]["loss"] for s in sorted(longer)],
+                      "mean_first_5": first5, "mean_last_5": last5},
+            "resumed_loss_step_12": resumed[11]["loss"],
+            "resumed_relative": rel, "ms_per_step": ms,
+            "ms_per_step_resumed": ms_resumed,
+            "tokens_per_s": 4 * 2048 / (ms / 1e3),
+            "peak_bytes": peak, "wall_s": wall,
+            "busy": train_busy_share()}
+
+
 def phase_serve(arch: str, gen_tokens: int) -> dict:
     from repro_torch.launch import serve
     expect = {"prefills": 0, "decode_steps": 0}
@@ -1097,6 +1371,15 @@ def tile_error(spec: str, config: dict):
     return None
 
 
+def poison_shared_memory() -> None:
+    """Fill every SM's shared memory with NaN (``csrc/smem_poison.cu``),
+    so that a kernel launched next that reads shared memory it did not
+    write gives a non-finite output."""
+    from repro_torch.kernels import _build
+    _build.check(_build.lib().rt_smem_poison(
+        torch.cuda.current_stream().cuda_stream), "smem_poison")
+
+
 def phase_kernel_cells(records: list, repeats: int = 2,
                        quiet: bool = False) -> list:
     """Each kernel through its tuner cell's builder (core/kernel_cell.py)
@@ -1104,10 +1387,11 @@ def phase_kernel_cells(records: list, repeats: int = 2,
     its tile knobs' domains that the tuner runs (those ``validate_tile``
     accepts), against its plain version on the same inputs (the wrapper
     on CPU copies of them), then called ``repeats`` times more: each
-    output must equal the first bit for bit.  Whether the output moves
-    with the tile is reported: only flash_decode's tile reaches its
-    kernel.  Returns the rows it checked (and emits them unless
-    ``quiet``)."""
+    output must be finite and equal the first bit for bit.  Every call
+    on the card follows a fill of the SMs' shared memory with NaN
+    (:func:`poison_shared_memory`).  Whether the output moves with the
+    tile is reported: only flash_decode's tile reaches its kernel.
+    Returns the rows it checked (and emits them unless ``quiet``)."""
     import itertools
 
     from repro_torch.core.kernel_cell import KERNELS
@@ -1129,14 +1413,22 @@ def phase_kernel_cells(records: list, repeats: int = 2,
                 except ValueError:
                     continue            # the tuner's deterministic crash
                 fn, args = spec.build(shape, default_config(**delta), dev)
+                poison_shared_memory()
                 got = fn(*args)
                 want = fn(*[a.cpu() for a in args])
                 got, want = (got if isinstance(got, tuple) else (got,),
                              want if isinstance(want, tuple) else (want,))
                 label = ",".join(map(str, tiles))
                 for _ in range(repeats):
+                    poison_shared_memory()
                     again = fn(*args)
                     again = again if isinstance(again, tuple) else (again,)
+                    if not all(bool(torch.isfinite(a.float()).all())
+                               for a in again):
+                        raise AssertionError(
+                            f"{name}:{shape_name} tiles {label}: a "
+                            "non-finite output after the shared-memory "
+                            "poison")
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
                         raise AssertionError(
                             f"{name}:{shape_name} tiles {label}: the output "
@@ -1153,40 +1445,36 @@ def phase_kernel_cells(records: list, repeats: int = 2,
                 bool(torch.equal(a, b)) for out in outs[1:]
                 for a, b in zip(outs[0], out)) if len(outs) > 1 else None
     if not quiet:
-        emit("kernel_cells", checked=rows, repeats=repeats)
+        emit("kernel_cells", checked=rows, repeats=repeats,
+             smem_poison=True)
     return rows
 
 
-def phase_tune(path: str, specs: str, root: pathlib.Path,
-               device: str = "cuda") -> dict:
-    """One campaign of the port's tuner, as ``tune --cells <specs>
-    --strategy tree --measure-top-k 2 --trace --fresh`` runs it, with
-    checkpoints, timing caches and telemetry under ``root``.  Checks the
-    walk's structure (the winner may differ from run to run: the host
-    clock spreads): every cell within the trial budget, no crashed
-    baseline, no crashed trial but one whose tile does not fit its
-    cell, a finite cost for every trial that did not crash, the reports
-    and campaign.md written, one telemetry span per trial.  Each serve
-    trial's replay costs are reported (``replay_costs``), with the
-    garbage collector's pauses."""
+def crash_allowed(key: str, config: dict, error: str) -> bool:
+    """Whether a trial's crash is one the walk may meet on the card: a
+    tile that does not fit its cell (the tuner's deterministic crash), or
+    a step that does not fit the card's memory (a CUDA out-of-memory
+    error, classified as a crash of the config).  Any other crash is a
+    failure of the path."""
+    expected = tile_error(key, config)
+    if expected is not None and expected in error:
+        return True
+    return error.startswith("OutOfMemoryError")
+
+
+def walk_summary(path: str, ckpt: pathlib.Path, reports: dict,
+                 report_dir: pathlib.Path) -> list:
+    """The checks of a walk (``phase_tune``'s and ``phase_tune_steps``'s):
+    every cell within the trial budget, no crashed baseline, no crash but
+    an allowed one (:func:`crash_allowed`), a finite cost for every trial
+    that did not crash, the reports written, one telemetry span per
+    trial.  Returns one summary per cell: its trials (delta, cost,
+    crashed, telemetry span, time held, each serve replay's cost, a step
+    trial's peak device memory), walk time, winner."""
     from repro_torch.core import telemetry
-    from repro_torch.core.campaign import parse_cells
     from repro_torch.core.history import config_from_dict
     from repro_torch.core.quarantine import config_key
     from repro_torch.core.tree import MAX_TRIALS
-    from repro_torch.launch import tune
-    ckpt = root / path
-    cells = parse_cells(specs)
-    t0 = time.time()
-    try:
-        with GcPauses() as gc_pauses:
-            reports, stats = tune.tune_campaign(
-                cells, fresh=True, checkpoint_dir=ckpt, strategy="tree",
-                measure_top_k=2, trace=True, device=device,
-                timing_dir=ckpt / "timings")
-    finally:
-        telemetry.uninstall()
-    wall = time.time() - t0
     events = telemetry.read_events(ckpt)
     spans, replays = {}, {}
     for e in events:
@@ -1198,11 +1486,9 @@ def phase_tune(path: str, specs: str, root: pathlib.Path,
     marks = {(e["kind"], e.get("cell")): e["ts"] for e in events
              if e["kind"] in ("cell.activate", "cell.done")}
     out = []
-    for spec in cells:
-        key = spec.key()
-        rep = reports[key]
-        if not (ckpt / "reports" / f"{key}.json").exists() \
-                or not (ckpt / "reports" / f"{key}.md").exists():
+    for key, rep in reports.items():
+        if not (report_dir / f"{key}.json").exists() \
+                or not (report_dir / f"{key}.md").exists():
             raise AssertionError(f"{path}: no report for {key}")
         if not 1 <= rep.n_trials <= MAX_TRIALS:
             raise AssertionError(f"{path}: {key} took {rep.n_trials} trials")
@@ -1220,12 +1506,10 @@ def phase_tune(path: str, specs: str, root: pathlib.Path,
             cost = res["cost_s"]
             if not res["crashed"] and not 0 < cost < float("inf"):
                 raise AssertionError(f"{path}: {key} {name} cost {cost}")
-            if res["crashed"]:
-                # only a tile that does not fit the cell may crash
-                expected = tile_error(key, config)
-                if expected is None or expected not in res["error"]:
-                    raise AssertionError(f"{path}: {key} {name} crashed: "
-                                         f"{res['error']}")
+            if res["crashed"] and not crash_allowed(key, config,
+                                                    res["error"]):
+                raise AssertionError(f"{path}: {key} {name} crashed: "
+                                     f"{res['error']}")
             ck = config_key(config_from_dict(config))
             if not spans.get((key, ck)):
                 raise AssertionError(f"{path}: {key} {name}: no telemetry "
@@ -1236,13 +1520,14 @@ def phase_tune(path: str, specs: str, root: pathlib.Path,
                            "error": res.get("error") or None,
                            "span_s": span["dur_s"],
                            "held_s": res.get("compile_s"),
+                           "peak_bytes": res.get("peak_bytes"),
                            "replay_costs": (replays.get((key, ck)) or
                                             [None]).pop(0)})
         final = rep.final_config
+        walk = (marks[("cell.done", key)] - marks[("cell.activate", key)]
+                if ("cell.done", key) in marks else None)
         out.append({
-            "cell": key, "trials": trials,
-            "walk_s": marks[("cell.done", key)]
-            - marks[("cell.activate", key)],
+            "cell": key, "trials": trials, "walk_s": walk,
             "baseline_cost_s": rep.baseline_cost,
             "winner": {"delta": {k: v for k, v in final.items()
                                  if base["config"][k] != v},
@@ -1251,13 +1536,86 @@ def phase_tune(path: str, specs: str, root: pathlib.Path,
             "measured_winner_cost_s": measured.get("winner_cost_s")})
     if any(spans.values()):
         raise AssertionError(f"{path}: telemetry spans without a trial")
+    return out
+
+
+def phase_tune(path: str, specs: str, root: pathlib.Path,
+               device: str = "cuda", measure_top_k: int = 2) -> dict:
+    """One campaign of the port's tuner, as ``tune --cells <specs>
+    --strategy tree --measure-top-k <k> --trace --fresh`` runs it, with
+    checkpoints, timing caches and telemetry under ``root``.  Checks the
+    walk's structure (:func:`walk_summary`; the winner may differ from
+    run to run: the host clock spreads) and that campaign.md, the
+    campaign's stats, events and metrics are written.  Each serve
+    trial's replay costs are reported (``replay_costs``), with the
+    garbage collector's pauses."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.campaign import parse_cells
+    from repro_torch.launch import tune
+    ckpt = root / path
+    cells = parse_cells(specs)
+    t0 = time.time()
+    try:
+        with GcPauses() as gc_pauses:
+            reports, stats = tune.tune_campaign(
+                cells, fresh=True, checkpoint_dir=ckpt, strategy="tree",
+                measure_top_k=measure_top_k, trace=True, device=device,
+                timing_dir=ckpt / "timings")
+    finally:
+        telemetry.uninstall()
+    wall = time.time() - t0
+    out = walk_summary(path, ckpt, {c.key(): reports[c.key()]
+                                    for c in cells}, ckpt / "reports")
     for name in ("campaign.md", "campaign_stats.json", "events.jsonl",
                  "metrics.json"):
         if not (ckpt / name).exists():
             raise AssertionError(f"{path}: {name} not written")
     return {"cells": out, "wall_s": wall, "gc": gc_pauses.summary(),
             "evaluated_trials": stats["evaluated_trials"],
-            "measured_evaluations": stats["measured"]["evaluations"]}
+            "measured_evaluations": stats.get("measured", {}).get(
+                "evaluations", 0)}
+
+
+def phase_tune_cell(path: str, arch: str, shape: str, root: pathlib.Path,
+                    device: str = "cuda") -> dict:
+    """Single-cell mode (``tune --arch <arch> --shape <shape>``): one
+    tree walk of a step cell, every trial a measured step
+    (``tune.tune_cell``), with telemetry recorded under ``root``, and
+    :func:`walk_summary`'s checks."""
+    from repro_torch.core import telemetry
+    from repro_torch.launch import tune
+    ckpt = root / path
+    ckpt.mkdir(parents=True)
+    telemetry.install(telemetry.Telemetry(ckpt))
+    t0 = time.time()
+    try:
+        rep = tune.tune_cell(arch, shape, device=device,
+                             timing_dir=ckpt / "timings",
+                             out_dir=ckpt / "reports")
+        telemetry.publish_metrics(ckpt)
+    finally:
+        telemetry.uninstall()
+    wall = time.time() - t0
+    return {"cells": walk_summary(path, ckpt, {rep.workload: rep},
+                                  ckpt / "reports"),
+            "wall_s": wall, "evaluated_trials": rep.n_trials}
+
+
+# the step-cell walks of phase ``tune_steps``: single-cell mode on the
+# decode cell, one campaign over the prefill and train cells; a re-rank
+# by the reduced proxy would let a toy program overrule the full-width
+# walk, so there is none
+STEP_CELL = ("smollm-135m", "decode_card")
+STEP_CAMPAIGN = "smollm-135m:prefill_card,smollm-135m:train_card"
+
+
+def phase_tune_steps(root: pathlib.Path) -> dict:
+    """The measured step cells at full smollm-135m width and depth."""
+    cell = phase_tune_cell("tune_cell", *STEP_CELL, root)
+    torch.cuda.empty_cache()
+    camp = phase_tune("tune_step_campaign", STEP_CAMPAIGN, root,
+                      measure_top_k=0)
+    return {"single_cell": cell, "campaign": camp}
 
 
 def main(argv=None) -> int:
@@ -1282,6 +1640,7 @@ def main(argv=None) -> int:
     phase_kernel_cells(records)
     phase_agree()
     phase_agree_zamba()
+    phase_agree_train()
     # the main paths: every launch counter is set to 0 just before each
     # path and read right after it
     by_path = {}
@@ -1301,6 +1660,25 @@ def main(argv=None) -> int:
                 if got[name] < 1:
                     raise AssertionError(f"{path}: {name} was never "
                                          "launched")
+            torch.cuda.empty_cache()
+        # training launches no kernel (the step runs the eager ops: the
+        # kernels are forward-only, as the reference's are); the step
+        # cells' prefill and decode trials launch three
+        for path, run, expect in (
+                ("train", phase_train,
+                 {name: 0 for name in counters()}),
+                ("tune_steps", phase_tune_steps,
+                 {"rmsnorm": 1, "flash_attention": 1, "flash_decode": 1})):
+            for mod in counters().values():
+                mod.launches = 0
+            result = run(pathlib.Path(root) / path)
+            by_path[path] = got = {name: mod.launches
+                                   for name, mod in counters().items()}
+            emit(path, launches=got, **result)
+            for name, want in expect.items():
+                if (got[name] != 0) if want == 0 else (got[name] < want):
+                    raise AssertionError(f"{path}: {name} launched "
+                                         f"{got[name]} times")
             torch.cuda.empty_cache()
     for rec in records:
         rec["launches_by_path"] = {a: got[rec["name"]]

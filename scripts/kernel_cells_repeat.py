@@ -9,10 +9,14 @@ the card has done the same work as in a smoke run), then its phase
 ``kernel_cells`` ``--rounds`` times (every kernel cell at every tile the
 tuner accepts, against its plain version, each output then repeated and
 required equal bit for bit), counting the rounds that fail and the worst
-error seen per kernel.  Then calls each cell's kernel ``--poisoned``
-times right after freeing device memory filled with NaN, so an output
-that reads memory the kernel did not write shows as non-finite.  Prints
-one JSON line of counts, then the card's name and power limit.
+error seen per kernel (every call there follows a fill of the SMs'
+shared memory with NaN, ``chip_smoke.poison_shared_memory``).  Then
+calls each cell's kernel ``--poisoned`` times, each call right after
+freeing device memory filled with NaN and filling the SMs' shared memory
+with NaN, so an output that reads memory the kernel did not write shows
+as non-finite; each output is also held bit for bit against the cell's
+first call.  Prints one JSON line of counts, then the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -59,26 +63,35 @@ def main(argv=None) -> int:
             worst[row["kernel"]] = max(worst.get(row["kernel"], 0.0),
                                        row["max_abs_err"])
             calls += 3
-    dev, nan, poisoned = torch.device("cuda"), float("nan"), {}
+    dev, nan, poisoned, changed = torch.device("cuda"), float("nan"), {}, {}
     for name, spec in sorted(KERNELS.items()):
         for shape_name, shape in sorted(spec.shapes.items()):
-            bad = 0
+            fn, fargs = spec.build(shape, default_config(), dev)
+            cs.poison_shared_memory()
+            first = fn(*fargs)
+            first = first if isinstance(first, tuple) else (first,)
+            bad = differ = 0
             for _ in range(args.poisoned):
-                fn, fargs = spec.build(shape, default_config(), dev)
                 for size in (1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20,
                              1 << 22):
                     held = [torch.full((size,), nan, device=dev)
                             for _ in range(8)]
                     del held
+                cs.poison_shared_memory()
                 out = fn(*fargs)
                 out = out if isinstance(out, tuple) else (out,)
                 bad += any(not bool(torch.isfinite(o.float()).all())
                            for o in out)
+                differ += not all(torch.equal(a, b)
+                                  for a, b in zip(first, out))
             poisoned[f"{name}:{shape_name}"] = bad
+            changed[f"{name}:{shape_name}"] = differ
     print(json.dumps({"rounds": args.rounds, "failed_rounds": failures,
                       "kernel_calls_checked": calls,
                       "worst_err": worst, "poisoned_calls": args.poisoned,
-                      "non_finite_after_poison": poisoned}), flush=True)
+                      "smem_poison": True,
+                      "non_finite_after_poison": poisoned,
+                      "bits_changed_after_poison": changed}), flush=True)
     print(smi, flush=True)
     return 0
 

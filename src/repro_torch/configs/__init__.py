@@ -4,7 +4,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig, ShapeConfig, SHAPES, shape_applicable
+from repro_torch.configs.base import (ArchConfig, CARD_SHAPES, ShapeConfig,
+                                      SHAPES, shape_applicable)
 
 _ARCH_MODULES: Dict[str, str] = {
     "deepseek-coder-33b": "deepseek_coder_33b",
@@ -39,7 +40,14 @@ def get_reduced(arch_id: str) -> ArchConfig:
 
 
 def get_shape(shape_id: str) -> ShapeConfig:
-    return SHAPES[shape_id]
+    """A reference shape, or one of the port's card-sized ones
+    (``CARD_SHAPES``), by name."""
+    if shape_id in SHAPES:
+        return SHAPES[shape_id]
+    if shape_id in CARD_SHAPES:
+        return CARD_SHAPES[shape_id]
+    raise KeyError(f"unknown shape {shape_id!r}; known: {list(SHAPES)} "
+                   f"and the card's {list(CARD_SHAPES)}")
 
 
 def all_cells():
@@ -53,5 +61,6 @@ def all_cells():
     return out
 
 
-__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "shape_applicable",
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "CARD_SHAPES",
+           "shape_applicable",
            "list_archs", "get_config", "get_reduced", "get_shape", "all_cells"]

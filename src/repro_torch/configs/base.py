@@ -8,7 +8,7 @@ CPU smoke tests and the end-to-end examples.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +132,18 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                    # train | prefill | decode
+    # decode: a measured step's cache is filled with seeded values to its
+    # last row (FilledDecodeShape); the reference's shapes keep its zero
+    # cache at position 0.  Not a field: a shape's record stays the
+    # reference's
+    cache_filled: ClassVar[bool] = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FilledDecodeShape(ShapeConfig):
+    """A decode shape timed at the depth its name promises: the port's
+    card cell ``decode_card``."""
+    cache_filled: ClassVar[bool] = True
 
 
 SHAPES = {
@@ -139,6 +151,24 @@ SHAPES = {
     "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
     "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
     "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# Card-sized spellings of the reference's step cells, for one 80 GB card
+# (the port's own; SHAPES, and so every enumerated cell, stay the
+# reference's).  Each keeps its reference cell's kind.  Sized at
+# smollm-135m's shapes: train_4k's f32 logits alone are 206 GB and
+# decode_32k's bf16 cache 96.6 GB, so neither runs on one card.
+#   train_card   SmolLM-135M's published context, 2048
+#                (HuggingFaceTB/SmolLM-135M config.json,
+#                max_position_embeddings), 4 sequences: microbatches 2
+#                and 4 divide the batch
+#   prefill_card prefill_32k's length, one long prompt
+#   decode_card  decode_32k's depth, 8 streams, timed at that depth
+CARD_SHAPES = {
+    "train_card":   ShapeConfig("train_card",   2_048,  4, "train"),
+    "prefill_card": ShapeConfig("prefill_card", 32_768, 1, "prefill"),
+    "decode_card":  FilledDecodeShape("decode_card", 32_768, 8, "decode"),
 }
 
 

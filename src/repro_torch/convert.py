@@ -23,4 +23,5 @@ def from_jax_params(tree):
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":      # ml_dtypes: no torch counterpart
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+    # np.array keeps a 0-d leaf 0-d (np.ascontiguousarray makes it 1-d)
+    return torch.from_numpy(np.array(arr, order="C", copy=True))

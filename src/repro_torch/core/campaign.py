@@ -47,10 +47,10 @@ This is the PyTorch port's copy of the reference's ``core/campaign.py``:
 checkpoints, signatures and reports are byte-identical to the
 reference's.  It differs in two places.  Its checkpoints default to a
 directory of its own (``results/torch/campaign/``).  And the default
-evaluator times kernel and serve cells on the card but has no step
-evaluator yet, so a campaign over it refuses an ``arch:shape`` cell
-with ``NotImplementedError`` before any trial runs (ROADMAP.md queue A,
-slice 4).  The fabric (slice 6) is not ported.
+evaluator times every cell on one device (the card unless the CPU is
+asked for), and refuses a step cell whose model path is not ported
+with ``NotImplementedError`` before any trial runs.  The fabric (slice
+6 of ROADMAP.md queue A) is not ported.
 """
 from __future__ import annotations
 
@@ -346,7 +346,7 @@ class Campaign:
             evaluator = executor.evaluator
         elif evaluator is None:
             # kernel cells time their kernel, serve cells replay their
-            # trace; step cells are refused (no step evaluator yet)
+            # trace, step cells time full-width steps
             from repro_torch.core.kernel_cell import DispatchEvaluator
             evaluator = DispatchEvaluator()
         self.evaluator = evaluator

@@ -370,21 +370,50 @@ class KernelBenchEvaluator:
                                compile_s=round(time.time() - t0, 2))
 
 
-def step_cells_unported(key: str) -> str:
-    return (f"{key} is a step cell: measuring a model step is not ported "
-            "yet (ROADMAP.md queue A, slice 4: training, and measured "
-            "step cells)")
+def require_step_cell(wl: Workload) -> None:
+    """Raise ``NotImplementedError`` for a step cell whose model path is
+    not ported (an unported family; training outside the dense family),
+    naming its slice of ROADMAP.md queue A."""
+    from repro_torch.runtime.stepfn import require_trainable
+    from repro_torch.models.model import build_model
+    if wl.shp.kind == "train":
+        require_trainable(wl.cfg)
+    else:
+        build_model(wl.cfg)
+
+
+# a step sample's least length (s): shorter steps are timed in windows
+# of back-to-back calls (WallClockEvaluator).  On the H100 a host-bound
+# step's cost spreads less over longer samples (PERF.md, run v1:
+# decode_card 101 % -> 65 % -> 43 % at one step, 0.25 s and 1 s)
+STEP_MIN_SAMPLE_S = 1.0
+STEP_REPEATS = 5
+
+
+def step_evaluator(device="cuda", cache_dir=None) -> Callable:
+    """The measured step evaluator of every walk over step cells, in a
+    campaign and in single-cell mode: real full-width steps on
+    ``device`` (:class:`~repro_torch.core.trial.WallClockEvaluator` on
+    the bundle's own arguments), behind the timing cache, whose keys
+    name the device and the sampling protocol."""
+    from repro_torch.core.measure import (MEASURE_VERSION, CachedMeasure,
+                                          TimingCache)
+    from repro_torch.core.trial import WallClockEvaluator
+    return CachedMeasure(
+        WallClockEvaluator(None, STEP_REPEATS, device, STEP_MIN_SAMPLE_S),
+        cache=TimingCache(cache_dir),
+        tag=f"{MEASURE_VERSION}:step-window-{STEP_MIN_SAMPLE_S}")
 
 
 class DispatchEvaluator:
     """The campaign's cell-kind-aware default evaluator: kernel
     workloads go to the (timing-cached) kernel bench, serve workloads
     to the (timing-cached) traffic-replay evaluator
-    (serving/evaluator.py), both on ``device``.  Step workloads go to
-    ``step``; the port has no step evaluator of its own yet, so without
-    one :meth:`accepts` refuses a step cell (the campaign asks before
-    any trial runs) and a step workload that still reaches
-    :meth:`__call__` raises.  ``cache_dir`` holds the timing caches
+    (serving/evaluator.py), step workloads to :func:`step_evaluator`
+    unless ``step`` is given, all on ``device``; the timing caches'
+    keys name the device.
+    :meth:`accepts` refuses, before any trial runs, a step cell whose
+    model path is not ported.  ``cache_dir`` holds the timing caches
     (default: the port's ``results/torch/trials/timings``)."""
 
     def __init__(self, step: Optional[Callable] = None,
@@ -394,7 +423,7 @@ class DispatchEvaluator:
                  device="cuda", cache_dir=None):
         from repro_torch.core.measure import CachedMeasure, TimingCache
         from repro_torch.serving.evaluator import make_serve_evaluator
-        self.step = step
+        self.step = step or step_evaluator(device, cache_dir)
         self.kernel = kernel or CachedMeasure(
             KernelBenchEvaluator(device=device), cache=TimingCache(cache_dir))
         self.serve = serve or make_serve_evaluator(
@@ -402,17 +431,15 @@ class DispatchEvaluator:
 
     def accepts(self, spec: CellSpec) -> None:
         """Raise ``NotImplementedError`` for a cell this evaluator has
-        no path for (a step cell while ``step`` is None)."""
+        no path for (a step cell whose model path is not ported)."""
         wl = spec.workload()
-        if (self.step is None and not is_kernel_workload(wl)
-                and not str(wl.arch).startswith("serve-")):
-            raise NotImplementedError(step_cells_unported(wl.key()))
+        if not is_kernel_workload(wl) \
+                and not str(wl.arch).startswith("serve-"):
+            require_step_cell(wl)
 
     def __call__(self, wl: Workload, rt: TunableConfig) -> TrialResult:
         if is_kernel_workload(wl):
             return self.kernel(wl, rt)
         if str(getattr(wl, "arch", "")).startswith("serve-"):
             return self.serve(wl, rt)
-        if self.step is None:
-            raise NotImplementedError(step_cells_unported(wl.key()))
         return self.step(wl, rt)

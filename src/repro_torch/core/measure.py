@@ -20,9 +20,8 @@ This is the PyTorch port's copy of the reference's ``core/measure.py``:
     re-rank candidate selection over a cell's trial log, and the
     measured tier's default evaluator: kernel cells time their
     hand-written kernel on the card (core/kernel_cell.py), serve cells
-    replay their trace again (serving/evaluator.py).  Step cells need
-    the reduced wall-clock proxy, :class:`ReducedWallClock`, which comes
-    with slice 4 (ROADMAP.md queue A) and raises until then.
+    replay their trace again (serving/evaluator.py), step cells run the
+    reduced wall-clock proxy, :class:`ReducedWallClock`.
 """
 from __future__ import annotations
 
@@ -180,28 +179,70 @@ def select_top_k(log: List[Any], k: int) -> List[Dict]:
 
 
 # --------------------------------------- default measured evaluation
-class ReducedWallClock:
-    """The reference's wall-clock evaluator over each step cell's reduced
-    runnable proxy.  Not ported: it needs the step builders of slice 4."""
+@dataclasses.dataclass
+class _ProxyWorkload(Workload):
+    """Same cell identity, reduced config + capped shape (the
+    calibration-point idea applied to execution: measure the runnable
+    proxy, rank by its real wall clock)."""
+    seq_cap: int = 128
+    batch_cap: int = 8
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ReducedWallClock is not ported yet (ROADMAP.md queue A, "
-            "slice 4: training, and measured step cells)")
+    @property
+    def cfg(self):
+        from repro_torch.configs import get_reduced
+        return get_reduced(self.arch)
+
+    @property
+    def shp(self):
+        from repro_torch.configs import get_shape
+        base = get_shape(self.shape)
+        return type(base)(f"measure_{base.name}",
+                          min(base.seq_len, self.seq_cap),
+                          min(base.global_batch, self.batch_cap),
+                          base.kind)
+
+
+class ReducedWallClock:
+    """Hardened :class:`~repro_torch.core.trial.WallClockEvaluator` over
+    each cell's reduced runnable proxy (the arch's reduced config, the
+    shape capped at ``seq_cap`` and ``batch_cap``), on ``device``.  Keeps
+    the cell's identity for keys/history; only the executed program is
+    reduced."""
+
+    def __init__(self, repeats: int = 3, seq_cap: int = 128,
+                 batch_cap: int = 8, device="cuda"):
+        from repro_torch.core.trial import WallClockEvaluator
+        self.repeats = repeats
+        self.seq_cap = seq_cap
+        self.batch_cap = batch_cap
+        self.device = device
+        self._ev = WallClockEvaluator(None, repeats, device)
+
+    def __call__(self, wl: Workload, rt: TunableConfig) -> TrialResult:
+        proxy = _ProxyWorkload(wl.arch, wl.shape, wl.multi_pod,
+                               seq_cap=self.seq_cap,
+                               batch_cap=self.batch_cap)
+        if proxy.shp.kind == "train" and rt.attn_impl == "pallas":
+            # the kernels are forward-only (no backward): executed train
+            # steps take attention through the eager path, as the
+            # reference's do; the forward-only prefill/decode kinds keep
+            # the real kernel
+            rt = rt.replace(attn_impl="xla")
+        return self._ev(proxy, rt)
 
 
 def default_measured_evaluator(cache_dir: Optional[pathlib.Path] = None,
                                repeats: int = 3,
                                device="cuda") -> CachedMeasure:
     """The campaign's measured tier when none is injected: dispatch
-    kernel cells to the kernel bench and serve cells to a trace replay,
-    both on ``device``; wrap everything in the disk-backed timing cache
-    (``cache_dir`` defaults to the port's ``results/torch/trials/
-    timings``).  A step cell reaches :class:`ReducedWallClock`, which
-    raises."""
+    kernel cells to the kernel bench, serve cells to a trace replay and
+    step cells to the reduced wall-clock proxy, all on ``device``; wrap
+    everything in the disk-backed timing cache (``cache_dir`` defaults
+    to the port's ``results/torch/trials/timings``)."""
     from repro_torch.core.kernel_cell import (KernelBenchEvaluator,
                                               is_kernel_workload)
     from repro_torch.serving.evaluator import ServeEvaluator
+    step = ReducedWallClock(repeats=repeats, device=device)
     kern = KernelBenchEvaluator(repeats=repeats, device=device)
     # serve cells are *already* measured (the trial cost is a trace
     # replay): the re-rank pass replays the same trace, guard off
@@ -212,7 +253,7 @@ def default_measured_evaluator(cache_dir: Optional[pathlib.Path] = None,
             return kern(wl, rt)
         if str(getattr(wl, "arch", "")).startswith("serve-"):
             return serve(wl, rt)
-        return ReducedWallClock(repeats=repeats)(wl, rt)
+        return step(wl, rt)
 
     return CachedMeasure(dispatch, cache=TimingCache(cache_dir),
                          repeats=repeats, device=device)

@@ -3,19 +3,19 @@
 A trial = one configuration of the 12 knobs applied to one workload cell.
 The application is a black box: the runner only observes a scalar cost.
 
-This is the PyTorch port's copy of the reference's ``core/trial.py``
-without the reference's device code: the failure taxonomy,
-``TrialResult``, ``Workload``, the two-level ``CompileCache`` (which the
-measured tier's timing cache builds on) and ``TrialRunner`` are the
-same, so trial logs, checkpoints and history rows are byte-identical
-between the packages.  The evaluators that time a model step come later
-(ROADMAP.md, queue A): ``WallClockEvaluator`` with slice 4,
-``RooflineEvaluator`` with slice 8; each raises ``NotImplementedError``
-when it is built.  Kernel and serve cells are evaluated by
-``core/kernel_cell.KernelBenchEvaluator`` and
-``serving/evaluator.ServeEvaluator``, which take the card through
-:func:`hold_device`; the executor's deadline counts a trial's time on
-its device, not its wait for it (:class:`TrialClock`).
+This is the PyTorch port's copy of the reference's ``core/trial.py``:
+the failure taxonomy, ``TrialResult``, ``Workload``, the two-level
+``CompileCache`` (which the measured tier's timing cache builds on) and
+``TrialRunner`` are the same, so trial logs, checkpoints and history
+rows are byte-identical between the packages.  Step cells
+(``arch:shape``) are evaluated by :class:`WallClockEvaluator`, the
+median of real steps on one device; the analytic
+``RooflineEvaluator`` comes with slice 8 of ROADMAP.md queue A and
+raises ``NotImplementedError`` when it is built.  Kernel and serve cells
+are evaluated by ``core/kernel_cell.KernelBenchEvaluator`` and
+``serving/evaluator.ServeEvaluator``.  Every evaluator takes its device
+through :func:`hold_device`; the executor's deadline counts a trial's
+time on its device, not its wait for it (:class:`TrialClock`).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import threading
 import time
@@ -258,13 +259,121 @@ class RooflineEvaluator:
 
 
 class WallClockEvaluator:
-    """The paper's protocol over a model step: median of n repeats of
-    the real step.  Not ported: it needs the step builders of slice 4."""
+    """The paper's protocol: median of n repeats of the real step, on
+    ``device``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "WallClockEvaluator is not ported yet (ROADMAP.md queue A, "
-            "slice 4: training, and measured step cells)")
+    Hardened to the same contract as the other evaluators (the measured
+    tier, core/measure.py, runs it under the deadline/retry executor):
+    exceptions are classified through :func:`classify_exception` — a
+    :class:`TrialError` raised by a caching wrapper keeps its pre-tagged
+    class, and a CUDA out-of-memory error is a deterministic crash of
+    the config — and every result carries ``compiles``/``compile_s``
+    accounting.  Tile knobs are validated against the cell's sequence
+    length up front, so a non-dividing ``attn_block_q/kv`` is a clean
+    deterministic-crash trial.
+
+    The step comes from ``runtime/stepfn.build_step``.  ``make_args``
+    ``(bundle, workload, config, device) -> args`` defaults to the
+    bundle's ``measure_args``: zero-filled arguments of its shapes, as
+    the reference's (so a reference decode cell's cache sits at position
+    0), except that a shape marked ``cache_filled`` (the port's card
+    decode cell) decodes at its last row from a seeded cache.  The first
+    call (allocation, the kernels' build) is not timed and is reported
+    as ``compile_s``; each timed call is the host's wall clock around
+    the call and a synchronize of the device, the step's cost as a user
+    pays it.  The cost is the median of ``repeats`` samples.  With
+    ``min_sample_s`` > 0 a second untimed call sets a window: a sample
+    is then the mean of as many back-to-back timed calls as make up
+    ``min_sample_s`` (one for a step that long), so a short, host-bound
+    step is not priced by a few milliseconds of the host's jitter.  As
+    in the reference, a donating step's outputs are threaded into the
+    next call: a train step's parameters and optimizer state, a decode
+    step's cache (its position stays the first call's: a host integer
+    here, so every timed call decodes at the depth the arguments give).
+    The device's lock is held for the whole trial; ``peak_bytes`` is the
+    device's peak allocation over it (``torch.cuda.max_memory_allocated``;
+    None on the CPU).  The mesh factory of the reference has no
+    counterpart: the port's steps run on one device."""
+
+    def __init__(self, make_args: Optional[Callable] = None,
+                 repeats: int = 5, device="cuda", min_sample_s: float = 0.0):
+        self._make_args = make_args
+        self.repeats = repeats
+        self.device = device
+        self.min_sample_s = min_sample_s
+
+    def __call__(self, wl: Workload, rt: TunableConfig) -> TrialResult:
+        import statistics
+
+        import torch
+
+        from repro_torch.core.space import SPACE
+        from repro_torch.models.model import resolve_device
+        from repro_torch.runtime.stepfn import build_step
+        t0 = time.time()
+        compile_s = 0.0
+        compiles = 0
+        try:
+            SPACE.validate(rt, seq_len=wl.shp.seq_len)
+            dev = resolve_device(self.device)
+            cuda = dev.type == "cuda"
+
+            def sync():
+                if cuda:
+                    torch.cuda.synchronize(dev)
+            with hold_device(dev):
+                t0 = time.time()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                bundle = build_step(wl.cfg, wl.shp, rt, None)
+                args = self._make_args(bundle, wl, rt, dev) \
+                    if self._make_args is not None \
+                    else bundle.measure_args(dev)
+                sync()
+                c0 = time.perf_counter()
+                out = bundle.fn(*args)
+                sync()
+                compile_s = round(time.perf_counter() - c0, 2)
+                compiles = 1
+
+                def timed():
+                    nonlocal args, out
+                    args = _thread_donated(bundle.kind, rt, args, out)
+                    del out
+                    t1 = time.perf_counter()
+                    out = bundle.fn(*args)
+                    sync()
+                    return time.perf_counter() - t1
+                window = 1
+                if self.min_sample_s > 0:
+                    window = max(1, math.ceil(self.min_sample_s / timed()))
+                ts = [sum(timed() for _ in range(window)) / window
+                      for _ in range(self.repeats)]
+                peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+                del out, args
+            return TrialResult(cost_s=float(statistics.median(ts)),
+                               peak_bytes=peak, compiles=compiles,
+                               compile_s=compile_s)
+        except Exception as e:
+            # TrialError already carries the stored "TypeName: msg"
+            err = str(e) if isinstance(e, TrialError) \
+                else f"{type(e).__name__}: {e}"
+            return TrialResult(cost_s=float("inf"), crashed=True,
+                               error=err[:500],
+                               failure=classify_exception(e),
+                               compiles=compiles,
+                               compile_s=compile_s or
+                               round(time.time() - t0, 2))
+
+
+def _thread_donated(kind: str, rt: TunableConfig, args, out):
+    """The next call's arguments: a donating step's updated state, as
+    the reference threads it (``trial.py``), else the same arguments."""
+    if rt.donate_buffers and kind == "train":
+        return (out[0], out[1], args[2])
+    if rt.donate_buffers and kind == "decode":
+        return (args[0], dict(out[1], pos=args[1]["pos"]), args[2])
+    return args
 
 
 _DEVICE_LOCKS: Dict[str, threading.Lock] = {}

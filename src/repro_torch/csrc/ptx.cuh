@@ -1,6 +1,7 @@
 // PTX wrappers shared by the tensor-core kernels of this directory:
-// cp.async staging, ldmatrix, mma.sync (bf16 and TF32), ex2.approx and
-// the split of an f32 value into two TF32 parts.
+// cp.async staging, ldmatrix, mma.sync (bf16 and TF32), ex2.approx, the
+// split of an f32 value into two TF32 parts, and the acquire / release
+// accesses of a flag that one block passes to another.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -101,6 +102,29 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// A flag read with acquire and written with release semantics at GPU
+// scope, and an add with both (PTX ISA, "Memory Consistency Model":
+// ld.acquire / st.release / atom.acq_rel are morally strong at .gpu
+// scope, so a release that an acquire observes synchronizes with it).
+// The "memory" clobber keeps the compiler from moving the block's own
+// loads and stores across them.
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ int atom_add_acq_rel_gpu(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -67,6 +67,29 @@
 //   chunk c read only after chunk c has published, by which time chunk c
 //   holds it in shared memory.  The last block to finish sets the
 //   tickets and flags back to zero for the next call.
+// - The hand-off is an acquire / release pair (PTX ISA, chapter "Memory
+//   Consistency Model", sections "Release and Acquire Patterns" and
+//   "Ordering of memory operations": "Memory synchronization" and
+//   "Causality Order").  Producer: every thread stores its part of the
+//   state (weak __stcg stores), then bar.sync, then thread 0 writes the
+//   flag with st.release.gpu.  Consumer: thread 0 spins on the flag with
+//   ld.acquire.gpu until it reads the producer's value, then bar.sync,
+//   then every thread reads the state (weak __ldcg loads).  The argument:
+//   a bar.sync synchronizes with the bar.sync of the CTA's other threads;
+//   a release that an acquire of the same location at the same (.gpu)
+//   scope observes synchronizes with it; base causality order is the
+//   transitive closure of program order and synchronizes-with.  So each
+//   producer thread's store precedes (program order) its bar.sync, which
+//   synchronizes with thread 0's, which precedes its release, which
+//   synchronizes with the consumer's acquire, which precedes the
+//   consumer's bar.sync, which synchronizes with every consumer thread's,
+//   which precedes its load: the store precedes the load in causality
+//   order, so the load cannot read the slot's older value.  The release
+//   is cumulative over the barrier in this sense, and no thread but 0
+//   needs a fence of its own.  The same chain orders chunk c's loads of
+//   a slot before chunk c + 1's stores to it (the slot two chunks share).
+//   The count of finished blocks is an atom.acq_rel.gpu, so the block
+//   that resets the flags comes after every block's last read of them.
 // - Fill: B * ceil(S / 64) * ceil(H / 8) blocks -- 896 at zamba2-7b's B 4,
 //   S 1024, H 112, and 224 at B 1 -- two resident per SM for bf16 X
 //   (112,896 B of shared memory each), one for f32 X (131,328 B).
@@ -378,14 +401,13 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
     // in shared memory for the carried term
     if (c > 0 && tid == 0) {
       const long long t0 = clock64();
-      while (*reinterpret_cast<volatile const int*>(prev_pub) <= i) {
+      while (ld_acquire_gpu(prev_pub) <= i) {
         __nanosleep(32);
         // a publish that never comes (a fault) traps instead of hanging
         if (clock64() - t0 > kSpinLimit) __trap();
       }
-      __threadfence();
     }
-    __syncthreads();
+    __syncthreads();   // the acquire, extended to the block's threads
     {
       const float a_chunk = expf((float)cm[kQ - 1]);
       const size_t hb = ((size_t)b * H + hh) * kQ * kQ;
@@ -415,13 +437,10 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
             st2(hs + p * kLdR + n, hp.x, hp.y);
           }
     }
-    // the block's stores, then one fence (cumulative over the barrier),
-    // then the flag
+    // the block's stores, then the barrier, then the flag written with
+    // release semantics (cumulative over the barrier: header)
     __syncthreads();
-    if (tid == 0 && c < nc - 1) {
-      __threadfence();
-      atomicExch(pub, i + 1);
-    }
+    if (tid == 0 && c < nc - 1) st_release_gpu(pub, i + 1);
 
     // outputs: Y = diag(exp(cum_t)) C h^T + S X
     zero(acc);
@@ -490,7 +509,7 @@ ssd_kernel(const T* __restrict__ X, const float* __restrict__ Bm,
   // the last block to finish sets the tickets and flags back to zero
   cp_async_wait<0>();
   const int total = nc * per_chunk;
-  if (tid == 0) s_ticket = atomicAdd(&sync[1], 1) == total - 1;
+  if (tid == 0) s_ticket = atom_add_acq_rel_gpu(&sync[1], 1) == total - 1;
   __syncthreads();
   if (s_ticket) {
     for (int k = tid; k < total; k += kThreads) sync[2 + k] = 0;

@@ -53,6 +53,9 @@ _SIGNATURES: Dict[str, List] = {
     "rt_ssm_scan_chunk": [],
     # B, S, H -> ints of the scan's sync buffer (a long long)
     "rt_ssm_scan_sync_len": [_I, _I, _I],
+    # stream: fill every SM's shared memory with NaN (a check that a
+    # kernel reads no shared memory it did not write; csrc/smem_poison.cu)
+    "rt_smem_poison": [_P],
 }
 # entry points that return something other than an int
 _RESTYPES = {"rt_ssm_scan_sync_len": ctypes.c_longlong}

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forward_only
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 SMEM_LIMIT = 232_448      # dynamic shared memory one block can have
@@ -57,6 +57,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     ``f32_tiles``) at every S, the ragged edge masked, so a prime S does
     not shrink them, and both fit at every head dim."""
     global launches
+    forward_only("flash_attention", q, k, v)
     if not q.is_cuda:
         o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal)

@@ -12,7 +12,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forward_only
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.tiling import fit_block
 
@@ -140,6 +140,7 @@ def flash_decode(q, k_cache, v_cache, length, k_scale=None, v_scale=None,
     whole fitted tiles (``plan_split``) and merges them in the same
     launch."""
     global launches
+    forward_only("flash_decode", q, k_cache, v_cache, k_scale, v_scale)
     length = int(length)
     if not q.is_cuda:
         ks = k_scale.transpose(1, 2) if k_scale is not None else None

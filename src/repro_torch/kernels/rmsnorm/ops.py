@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forward_only
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -116,6 +116,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-5, block_rows: int = 256):
     reference: the kernel lays rows over threads by ``plan``, so no row
     block has to divide the row count."""
     global launches
+    forward_only("rmsnorm", x, scale)
     if not x.is_cuda:
         return rmsnorm_ref(x, scale, eps=eps)
     xd, sd = x.dtype, scale.dtype

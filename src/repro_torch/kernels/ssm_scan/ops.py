@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, forward_only
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_tiled
 
 MAX_STATE = 64       # largest P (head dim) and N (state size)
@@ -47,6 +47,7 @@ def ssm_scan(X, Bm, Cm, dt, la, *, chunk: int = 256):
     (``astype(float32)``); they are converted only if they come in
     another dtype.  On the card P and N are multiples of 8 up to 64."""
     global launches
+    forward_only("ssm_scan", X, Bm, Cm, dt, la)
     if not X.is_cuda:
         return ssm_scan_tiled(X, Bm, Cm, dt, la, KERNEL_CHUNK)
     B, S, H, P = X.shape

@@ -2,22 +2,36 @@
 the card.
 
     PYTHONPATH=src python -m repro_torch.launch.tune \\
+        --arch smollm-135m --shape decode_card
+    PYTHONPATH=src python -m repro_torch.launch.tune \\
         --cells serve:smollm-135m:poisson_card,kernel:rmsnorm:tiny
+    PYTHONPATH=src python -m repro_torch.launch.tune \\
+        --cells smollm-135m:prefill_card,smollm-135m:train_card
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
         --cells serve:smollm-135m:poisson_tiny --fresh --checkpoint-dir DIR
 
-This is the PyTorch port of the reference's ``launch/tune.py``, campaign
-mode: ``--cells`` runs a batch of cells in one concurrent campaign
-(core/campaign.py); every cell's cursor interleaves over one shared
-executor, per-cell state checkpoints under ``results/torch/campaign/``
-(or ``--checkpoint-dir``), an interrupted campaign resumes without
-re-paying completed trials, and per-cell reports go to
-``results/torch/tuning/`` (``<checkpoint dir>/reports/`` with
-``--checkpoint-dir``).  Every trial is a measured run on ``--device``
-(default ``cuda``; with no card this raises unless ``--device cpu`` is
-given): ``kernel:<name>:<shape>`` cells time one hand-written kernel
-(core/kernel_cell.py), ``serve:<arch>:<trace>`` cells replay a traffic
-trace through the port's scheduler (serving/evaluator.py).
+This is the PyTorch port of the reference's ``launch/tune.py``.  Every
+trial is a measured run on ``--device`` (default ``cuda``; with no card
+this raises unless ``--device cpu`` is given).
+
+Single-cell mode (``--arch/--shape``) walks one step cell with the
+measured step evaluator (core/trial.WallClockEvaluator: the median of
+real steps), where the reference's single-cell mode is roofline-only;
+its report goes to ``results/torch/tuning/`` (``<checkpoint
+dir>/reports/`` with ``--checkpoint-dir``).  Campaign mode (``--cells``)
+runs a batch of cells in one concurrent campaign (core/campaign.py);
+every cell's cursor interleaves over one shared executor, per-cell state
+checkpoints under ``results/torch/campaign/`` (or ``--checkpoint-dir``),
+an interrupted campaign resumes without re-paying completed trials, and
+per-cell reports go to ``results/torch/tuning/`` (``<checkpoint
+dir>/reports/`` with ``--checkpoint-dir``).  ``arch:shape`` step cells
+time the model step (the same evaluator), ``kernel:<name>:<shape>``
+cells one hand-written kernel (core/kernel_cell.py),
+``serve:<arch>:<trace>`` cells replay a traffic trace through the port's
+scheduler (serving/evaluator.py).  The card-sized step shapes
+(``train_card``, ``prefill_card``, ``decode_card``; configs/base.py)
+are reached by name; ``decode_card`` decodes at its last row
+(``ShapeConfig.cache_filled``).
 
 ``--strategy`` picks the search procedure (core/strategy.py): ``tree``
 (default, the paper's Fig.-4 ≤10-trial tuning tree), ``short``,
@@ -29,13 +43,11 @@ measured re-rank (``--measure-top-k``), the serving guard and promotion
 (``--slo-ttft``, ``--promote``) and telemetry (``--trace``,
 ``--trace-out``) behave as in the reference.
 
-Not ported yet (ROADMAP.md queue A), each raising
-``NotImplementedError`` that names its slice: the single-cell mode
-(``--arch/--shape``) and ``arch:shape`` step cells, which need a
-measured step evaluator (slice 4); the fabric, worker and intake flags
-(``--worker``, ``--workers``, ``--coordinate``, ``--add-cells``,
-``--status``, ``--stop``, ``--watch``, ``--all``, ``--evaluator``,
-``--measured-evaluator``; slice 6).
+Not ported yet (ROADMAP.md queue A, slice 6), each raising
+``NotImplementedError`` that names its slice: the fabric, worker and
+intake flags (``--worker``, ``--workers``, ``--coordinate``,
+``--add-cells``, ``--status``, ``--stop``, ``--watch``, ``--all``,
+``--evaluator``, ``--measured-evaluator``).
 """
 from __future__ import annotations
 
@@ -51,7 +63,6 @@ from repro_torch.core.params import SENSITIVITY_SWEEP, default_config
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "results" / \
     "torch" / "tuning"
 
-SLICE_4 = "ROADMAP.md queue A, slice 4: training, and measured step cells"
 SLICE_6 = "ROADMAP.md queue A, slice 6: the fleet"
 # the reference's fabric, worker and intake flags: switches, then flags
 # that take a value
@@ -108,12 +119,42 @@ def _save_cell_report(rep, strategy: str = "tree",
         report.cell_markdown(rep))
 
 
-def tune_cell(arch: str, shape: str, *args, **kwargs):
-    """Single-cell mode: the reference runs it on its analytic
-    evaluator; the port's measured step evaluator comes with slice 4."""
-    raise NotImplementedError(
-        f"single-cell mode (--arch {arch} --shape {shape}) needs a "
-        f"measured step evaluator, not ported yet ({SLICE_4})")
+def tune_cell(arch: str, shape: str, multi_pod: bool = False,
+              threshold: float = 0.05, baseline_overrides=None,
+              strategy: str = "tree", strategy_options=None,
+              device="cuda", evaluator=None, timing_dir=None,
+              out_dir=None):
+    """Single-cell mode: one strategy walk over one step cell, every
+    trial a measured step on ``device`` (the campaign's step evaluator,
+    :func:`~repro_torch.core.kernel_cell.step_evaluator`, unless one is
+    given), one trial at a time.
+    The report goes to ``out_dir`` (default ``results/torch/tuning``)."""
+    from repro_torch.core.executor import SweepExecutor
+    from repro_torch.core.kernel_cell import require_step_cell, step_evaluator
+    from repro_torch.core.strategy import drive, make_cursor
+    from repro_torch.core.trial import TrialRunner, Workload
+    from repro_torch.models.model import resolve_device
+    resolve_device(device)
+    wl = Workload(arch, shape, multi_pod)
+    require_step_cell(wl)
+    evaluator = evaluator or step_evaluator(device, timing_dir)
+    baseline = _baseline(baseline_overrides)
+    with SweepExecutor(evaluator, max_workers=1) as executor:
+        runner = TrialRunner(wl, executor.evaluator)
+        cursor = make_cursor(strategy, runner, baseline,
+                             threshold=threshold, options=strategy_options)
+        rep = drive(cursor, executor=executor)
+    _save_cell_report(rep, strategy, out_dir)
+    return rep
+
+
+def _print_cell_summary(rep) -> None:
+    if hasattr(rep, "speedup"):
+        print(f"\nspeedup: x{rep.speedup:.2f} in {rep.n_trials} trials")
+    else:
+        top = max(rep.impacts, key=lambda i: i.mean_abs_pct)
+        print(f"\ntop knob: {top.knob} ({top.mean_abs_pct:.1f}% mean "
+              f"|deviation|) in {rep.n_trials} trials")
 
 
 def campaign_dir(strategy: str = "tree", override=None) -> pathlib.Path:
@@ -253,9 +294,13 @@ def run_trace_out(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", help="single-cell mode: arch id")
+    ap.add_argument("--shape", help="single-cell mode: shape id "
+                                    "(a reference shape or *_card)")
     ap.add_argument("--cells",
                     help="campaign mode: comma-separated cell specs "
-                         "(kernel:<name>:<shape>, serve:<arch>:<trace>)")
+                         "(arch:shape[:pod|multipod], "
+                         "kernel:<name>:<shape>, serve:<arch>:<trace>)")
     ap.add_argument("--device", default="cuda",
                     help="device every trial runs on (default cuda; "
                          "cpu runs the kernels' plain versions)")
@@ -328,8 +373,6 @@ def main(argv=None) -> int:
                          "events as Chrome-trace/Perfetto JSON, then exit")
     unported = ap.add_argument_group(
         "not ported yet (each raises NotImplementedError)")
-    unported.add_argument("--arch", help=f"single-cell mode ({SLICE_4})")
-    unported.add_argument("--shape", help=f"single-cell mode ({SLICE_4})")
     for flag in FLEET_SWITCHES:
         unported.add_argument(flag, action="store_true",
                               help=f"fabric/intake ({SLICE_6})")
@@ -343,15 +386,11 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"{', '.join(fleet)}: the fabric, worker and intake flags are "
             f"not ported yet ({SLICE_6})")
-    if args.arch or args.shape:
-        tune_cell(args.arch, args.shape)
     if args.trace_out:
         if args.cells or args.fresh or args.trace:
             ap.error("--trace-out is a standalone export; drop "
                      "--cells/--fresh/--trace or run it separately")
         return run_trace_out(args)
-    if not args.cells:
-        ap.error("need --cells")
     if args.sweep_knobs and args.strategy != "sensitivity":
         ap.error("--sweep-knobs only applies to --strategy sensitivity")
     if (args.budget is not None or args.seed is not None) \
@@ -366,12 +405,14 @@ def main(argv=None) -> int:
     if args.slo_ttft is not None and args.slo_ttft <= 0:
         ap.error("--slo-ttft is a multiplier over the incumbent's "
                  "replay stats; it must be > 0 (e.g. 3.0)")
-    from repro_torch.core.campaign import parse_cells
-    cells = parse_cells(args.cells, default_multi_pod=args.multi_pod)
     options = _strategy_options(
         args.strategy, args.sweep_knobs, args.budget, args.seed,
         model_min_records=args.model_min_records,
         model_top_k=args.model_top_k)
+    if not args.cells:
+        return _single_cell(ap, args, options)
+    from repro_torch.core.campaign import parse_cells
+    cells = parse_cells(args.cells, default_multi_pod=args.multi_pod)
     reports, stats = tune_campaign(
         cells, threshold=args.threshold, fresh=args.fresh,
         checkpoint_dir=args.checkpoint_dir, strategy=args.strategy,
@@ -386,6 +427,25 @@ def main(argv=None) -> int:
           f"{stats['wall_s']}s ({stats['cells_per_hour']} cells/h; "
           f"{stats['evaluated_trials']} trials evaluated, "
           f"{stats['replayed_trials']} replayed from checkpoint)")
+    return 0
+
+
+def _single_cell(ap, args, options) -> int:
+    if not (args.arch and args.shape):
+        ap.error("need --arch and --shape, or --cells")
+    if args.measure_top_k:
+        ap.error("--measure-top-k applies to campaign mode (--cells); "
+                 "single-cell mode is already measured")
+    if args.trace:
+        ap.error("--trace records telemetry into the campaign directory; "
+                 "it applies to campaign mode (--cells)")
+    out_dir = pathlib.Path(args.checkpoint_dir) / "reports" \
+        if args.checkpoint_dir else None
+    rep = tune_cell(args.arch, args.shape, args.multi_pod, args.threshold,
+                    strategy=args.strategy, strategy_options=options,
+                    device=args.device, out_dir=out_dir)
+    print(report.cell_markdown(rep))
+    _print_cell_summary(rep)
     return 0
 
 

@@ -357,3 +357,15 @@ def unembed(p, x, cfg, rt: TunableConfig, rules):
     if w is None:
         w = p["embedding"].T
     return torch.einsum("bsd,dv->bsv", x.float(), cast(w, rt).float())
+
+
+def xent_loss(logits, labels, cfg):
+    """logits: (B,S,Vpad) f32; labels: (B,S) integers.  Mean over tokens
+    of logsumexp minus the gold logit, the padded columns masked to
+    -1e30 first."""
+    V = padded_vocab(cfg)
+    mask = torch.arange(V, device=logits.device) >= cfg.vocab
+    logits = logits.masked_fill(mask, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -1,9 +1,10 @@
-"""Dense decoder-only transformer (llama-style): the serving functions.
+"""Dense decoder-only transformer (llama-style).
 
 The layer stack is a Python loop over stacked parameters (leading
-'layers' dim).  This slice carries prefill and decode for the dense
-family; ``loss_fn`` and the MoE / VLM branches are later slices
-(ROADMAP.md, queue A).
+'layers' dim), each layer wrapped by the ``remat_policy`` checkpointing
+of ``runtime/remat.wrap_layer`` in ``forward``.  The dense family's
+``loss_fn`` (training), prefill and decode are ported; the MoE / VLM
+branches are a later slice (ROADMAP.md, queue A).
 
 The KV cache is ``{"layers": {"k", "v"[, "k_scale", "v_scale"]},
 "pos": int}`` with tensors stacked ``(L, B, Smax, Hkv, hd)`` as in the
@@ -72,10 +73,44 @@ def embed_inputs(p, batch, cfg, rt: TunableConfig, rules):
     return L.embed(p["embed"], batch["tokens"], rt)
 
 
+def forward(p, h, positions, cfg, rt: TunableConfig, rules):
+    """h: (B,S,d) embeddings -> (final hidden states, total aux loss).
+    Each layer runs under the remat policy; the residual between layers
+    is carried in ``remat.carry_dtype``."""
+    body = remat.wrap_layer(
+        lambda x, bp: _carried_block(bp, x, positions, cfg, rt, rules), rt)
+    auxs = []
+
+    def step(x, bp):
+        x, aux = body(x, bp)
+        auxs.append(aux)
+        return x, None
+
+    h, _ = scan_layers(step, remat.to_carry(h, rt), p["blocks"],
+                       unroll=rt.unroll_layers)
+    h = remat.from_carry(h, rt)
+    return L.rmsnorm(h, p["final_norm"], rt, cfg.norm_eps), sum(auxs)
+
+
+def _carried_block(bp, x, positions, cfg, rt, rules):
+    x = remat.from_carry(x, rt)
+    x, aux = _block(bp, x, positions, cfg, rt, rules)
+    return remat.to_carry(x, rt), aux
+
+
+AUX_COEF = 0.01
+
+
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
-    raise NotImplementedError(
-        "loss_fn is not ported yet (ROADMAP.md queue A, training: loss_fn, "
-        "runtime/stepfn.py, optim/)")
+    """Mean next-token cross-entropy (f32 logits over the padded vocab)
+    plus the weighted aux loss -> (loss, {"xent", "aux"})."""
+    h = embed_inputs(p, batch, cfg, rt, rules)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    h, aux = forward(p, h, positions, cfg, rt, rules)
+    logits = L.unembed(p["embed"], h, cfg, rt, rules)
+    loss = L.xent_loss(logits, batch["labels"], cfg)
+    return loss + AUX_COEF * aux, {"xent": loss, "aux": aux}
 
 
 # ------------------------------------------------------------- serving

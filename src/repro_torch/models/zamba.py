@@ -86,8 +86,8 @@ def forward(p, h, positions, cfg, rt: TunableConfig, rules):
 
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     raise NotImplementedError(
-        "loss_fn is not ported yet (ROADMAP.md queue A, training: loss_fn, "
-        "runtime/stepfn.py, optim/)")
+        "the hybrid family's loss_fn is not ported yet (ROADMAP.md queue "
+        "A, slice 5: the other families); training runs the dense family")
 
 
 # ------------------------------------------------------------- serving

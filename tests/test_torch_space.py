@@ -121,7 +121,8 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_configs.get_reduced("olmoe-1b-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.loss_fn(None, None, None, None, None)
+        transformer.embed_inputs(None, {"frontend_embeds": None}, None,
+                                 None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zamba.loss_fn(None, None, None, None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

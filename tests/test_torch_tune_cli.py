@@ -97,17 +97,27 @@ def test_no_card_raises_without_device_cpu(tmp_results, monkeypatch):
     assert not (tmp_results / "camp").exists()
 
 
-def test_single_cell_mode_raises_naming_slice_4():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tune.main(["--arch", "smollm-135m", "--shape", "train_4k"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tune.tune_cell("smollm-135m", "train_4k")
+def test_single_cell_mode_raises_naming_slice_4(tmp_results):
+    """Single-cell mode runs (tests/test_torch_step_cells.py); a cell
+    whose model path is not ported raises naming its slice, before any
+    trial."""
+    with pytest.raises(NotImplementedError, match="other model families"):
+        tune.main(["--device", "cpu", "--arch", "olmoe-1b-7b", "--shape",
+                   "train_4k"])
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tune.tune_cell("zamba2-7b", "train_4k", device="cpu")
+    assert not (tmp_results / "tuning").exists()
 
 
 def test_step_cells_raise_naming_slice_4(tmp_results):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tune.main(["--device", "cpu", "--cells", "smollm-135m:train_4k",
-                   "--checkpoint-dir", str(tmp_results / "camp")])
+    """Step cells run in campaigns (tests/test_torch_step_cells.py); one
+    whose model path is not ported raises naming its slice, before any
+    trial."""
+    ckpt = tmp_results / "camp"
+    with pytest.raises(NotImplementedError, match="other model families"):
+        tune.main(["--device", "cpu", "--cells", "xlstm-1.3b:train_4k",
+                   "--checkpoint-dir", str(ckpt)])
+    assert not list(ckpt.glob("*.json"))
 
 
 @pytest.mark.parametrize("flags", [
