@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--ptxas]  # needs one CUDA device and nvcc
 
 Drives the port's two serving paths (``repro_torch.launch.serve`` and
-``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m (dense)
-and zamba2-7b (hybrid: Mamba2 + shared attention), each at its full
-width and depth with random weights from a seed, builds the four
+``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m (dense),
+zamba2-7b (hybrid: Mamba2 + shared attention) and olmoe-1b-7b (MoE: 64
+experts, top 8), each at its full width and depth with random weights
+from a seed, builds the four
 hand-written CUDA kernels from ``src/repro_torch/csrc`` and holds each
 against its plain PyTorch version on the card, and shows by the
 wrappers' launch counters that each path went through its kernels.
@@ -14,19 +15,25 @@ wrappers' launch counters that each path went through its kernels.
 Phases, one JSON line each: env, build, kernels, kernel_cells (each
 kernel at the tuner's kernel-cell shapes and tiles, against its plain
 version, every call after a NaN fill of the SMs' shared memory), agree
-(kernel path vs eager path of the whole model, per model), agree_train
+(kernel path vs eager path of the whole model, per model; for olmoe
+``agree_moe`` also counts the routing decisions that differ and holds
+the MoE FFN alone against its expert-by-expert version), agree_train
 (one f32 train step on the card against the CPU), then for each model
 serve, scheduler and launches (every counter set to 0 just before the
-path and read right after it), then two campaigns of the port's tuner
+path and read right after it; olmoe's path also profiles a prefill and
+decode steps, ``serve_profile``), then two campaigns of the port's tuner
 (``repro_torch.launch.tune.tune_campaign``, strategy ``tree``, measured
 re-rank of the top 2, telemetry on), each a path of its own for the
 counters: ``tune`` walks the serve cell ``serve:smollm-135m:poisson_card``
 (smollm-135m at full width and depth) and ``tune_kernels`` the four
 kernel cells ``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``;
-then two more paths: ``train`` (``repro_torch.launch.train`` at full
-width and depth, a stop and a resume; it launches no kernel) and
-``tune_steps`` (single-cell mode on ``smollm-135m:decode_card``, a
-campaign over ``prefill_card`` and ``train_card``).  Checkpoints, timing
+then three more paths: ``train`` (``repro_torch.launch.train`` at full
+width and depth, a stop and a resume; it launches no kernel),
+``train_families`` (for olmoe-1b-7b, llava-next-34b and zamba2-7b at
+full width and a cut depth: one train step on the card against the CPU,
+then timed steps; no kernel) and ``tune_steps`` (single-cell mode on
+``smollm-135m:decode_card`` and ``olmoe-1b-7b:prefill_card``, a campaign
+over smollm's ``prefill_card`` and ``train_card``).  Checkpoints, timing
 caches and telemetry go to a fresh temporary directory, so no trial is
 replayed from an earlier run.  Any failure raises and the run exits
 non-zero.
@@ -90,8 +97,13 @@ BF16_SOURCE = "src/repro_torch/csrc/flash_attention_tc.cu"
 F32_SOURCE = "src/repro_torch/csrc/flash_attention_f32.cu"
 
 
+START = time.time()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": round(time.time() - START, 1),
+                      **fields}), flush=True)
 
 
 class GcPauses:
@@ -230,16 +242,21 @@ def _randn(gen, shape, dtype):
 
 
 # rmsnorm's timed shapes (rows, d, x dtype): the serving paths' prefill
-# (4*1024 rows) and decode (4 rows) at smollm-135m's width 576 and
-# zamba2-7b's 3584 (d_model) and 7168 (the Mamba2 blocks' gated output),
-# in bf16 and, at prefill, in f32 (the knob space's default compute dtype)
+# (4*1024 rows) and decode (4 rows) at smollm-135m's width 576,
+# zamba2-7b's 3584 (d_model) and 7168 (the Mamba2 blocks' gated output)
+# and olmoe-1b-7b's 2048, in bf16 and, at prefill, in f32 (the knob
+# space's default compute dtype)
 RMSNORM_TIMED = ((4 * 1024, 576, torch.bfloat16), (4, 576, torch.bfloat16),
                  (4 * 1024, 3584, torch.bfloat16),
                  (4 * 1024, 7168, torch.bfloat16),
                  (4, 3584, torch.bfloat16), (4, 7168, torch.bfloat16),
                  (4 * 1024, 576, torch.float32),
                  (4 * 1024, 3584, torch.float32),
-                 (4 * 1024, 7168, torch.float32))
+                 (4 * 1024, 7168, torch.float32),
+                 # olmoe-1b-7b (d_model 2048): prefill and decode
+                 (4 * 1024, 2048, torch.bfloat16),
+                 (4, 2048, torch.bfloat16),
+                 (4 * 1024, 2048, torch.float32))
 
 
 def rmsnorm_timed(gen, ops, rows: int, d: int, dtype) -> dict:
@@ -380,6 +397,7 @@ def kernels_flash_attention(gen) -> dict:
         ((4, 1000, 9, 64), True, (128, 128)),     # ragged: tiles fit to 125
         ((1, 300, 2, 256), True, (128, 128)),     # the largest hd
         ((2, 77, 2, 16), False, (128, 128)),      # the smallest hd
+        ((4, 1024, 16, 128), True, (128, 128)),   # olmoe-1b-7b prefill
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, causal, (bq, bkv) in cases:
@@ -448,7 +466,10 @@ def kernels_flash_attention(gen) -> dict:
               # at S 1024 and at the smoke trace's waves
               timed((4, 1024, 32, 112), torch.float32),
               timed((4, 919, 32, 112), torch.float32),
-              timed((4, 746, 32, 112), torch.float32)]
+              timed((4, 746, 32, 112), torch.float32),
+              # olmoe-1b-7b (MHA, 16 heads of 128) in bf16 and f32
+              timed((4, 1024, 16, 128), torch.bfloat16),
+              timed((4, 1024, 16, 128), torch.float32)]
     # the headline shape is bf16: flash_tc_kernel; f32 runs flash_f32_kernel
     return {"name": "flash_attention", "route": "cuda",
             "source": BF16_SOURCE,
@@ -524,6 +545,17 @@ def kernels_flash_decode(gen) -> dict:
             if not all(torch.equal(a, got) for a in again):
                 raise AssertionError(f"flash_decode {kv} hd{hd}: repeated "
                                      "calls differ")
+    # olmoe-1b-7b: H = Hkv = 16 heads of 128, the serving path's cache of
+    # 1024 + 32 rows in a 2048-row buffer, each cache type
+    for kv in ("bfloat16", "float32", "int8"):
+        tol = TOL[torch.float32] if kv == "float32" else 2e-2
+        q, kc, vc, ks, vs = make(4, 2048, 16, 16, 128, kv)
+        for length in (1, 1025, 1056, 2048):
+            got = ops.flash_decode(q, kc, vc, length, ks, vs, block_kv=128)
+            worst = max(worst, check(
+                f"flash_decode {kv} olmoe length={length}", got,
+                plain(q, kc, vc, ks, vs, length), tol))
+        del q, kc, vc, ks, vs
     # one query head per KV head (as zamba2-7b) at the other bf16 lane-group
     # sizes (hd 16, 32, 64, 128), with a ragged last tile and spans that
     # merge
@@ -586,12 +618,15 @@ def kernels_flash_decode(gen) -> dict:
                 "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
                 "bound_rate": rate}
     # the serving paths' shapes: B=4, cache grown to about 1056 positions
+    # (olmoe-1b-7b's in a 2048-row buffer)
     zamba = (4, 1088, 32, 32, 112)
     glm4, nemotron = (2, 32768, 32, 2, 128), (2, 640, 96, 8, 192)
+    olmoe = (4, 2048, 16, 16, 128)
     shapes = [timed("bfloat16", 1056), timed("int8", 1056),
               timed("bfloat16", 2048), timed("bfloat16", 1056, zamba),
               timed("int8", 1056, zamba), timed("bfloat16", 20001, glm4),
-              timed("int8", 20001, glm4), timed("bfloat16", 640, nemotron)]
+              timed("int8", 20001, glm4), timed("bfloat16", 640, nemotron),
+              timed("bfloat16", 1056, olmoe), timed("int8", 1056, olmoe)]
     # decode_kernel lives in the header; flash_decode.cu is its entry point
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cuh",
@@ -923,6 +958,217 @@ def phase_agree_zamba() -> None:
          results=out)
 
 
+# the near-tie margin of a routing comparison between the kernel path and
+# the eager path, relative to the k-th gate: in f32 the two differ by
+# summation order (~1e-6 of a logit); in bf16 by design (the eager
+# attention rounds its probabilities to bf16), about 1e-2 of a logit
+MOE_MARGIN = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+def routing_flips(routes_a: list, routes_b: list, k: int, margin: float,
+                  batch: int) -> dict:
+    """Compare two runs' routing call by call (``moe._route``'s gates and
+    top-k indices with the call's layer, one call per layer, a prefill
+    pass and then decode passes): a token whose chosen experts differ is
+    a flip.  A flip is ``downstream`` when the token's input may already
+    differ by a whole expert's output: a token at or before it in its
+    sequence flipped at an earlier layer of the same pass (causal
+    attention carries the flipped token's state to every later token,
+    whole where the softmax is nearly one-hot, as at the reference's
+    initialisation), or, in a decode pass, any prompt token of its
+    sequence flipped at an earlier layer of the prefill (the cache
+    carries it).  Any other flip is ``near`` when the gap between its
+    k-th and (k+1)-th gate, in either run, is below ``margin`` times the
+    k-th, else ``far``.  Counts per call, in call order."""
+    def gap(g):
+        top = g.topk(k + 1, dim=-1).values
+        return (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+    calls, prefill, earlier = [], {}, []
+    for (ga, ia, layer), (gb, ib, _) in zip(routes_a, routes_b):
+        S = ia.shape[0] // batch
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        diff = diff.view(batch, S)
+        if layer == 0:
+            earlier = []
+        tainted = torch.zeros_like(diff)
+        for f in earlier:                    # this pass, earlier layers
+            tainted |= f.cummax(dim=1).values
+        if S == 1:                           # decode: the prompt's flips
+            for lay, f in prefill.items():
+                if lay < layer:
+                    tainted |= f.any(dim=1, keepdim=True)
+        g = torch.minimum(gap(ga), gap(gb)).view(batch, S)
+        down = diff & tainted
+        near = diff & ~tainted & (g < margin)
+        far = diff & ~tainted & ~near
+        calls.append({"layer": layer, "tokens": batch * S,
+                      "flips": int(diff.sum()), "near": int(near.sum()),
+                      "downstream": int(down.sum()), "far": int(far.sum()),
+                      "largest_near_gap": float(g[near].max())
+                      if bool(near.any()) else 0.0,
+                      "far_gaps": [float(x) for x in g[far][:8]]})
+        earlier.append(diff)
+        if S > 1:
+            prefill[layer] = diff
+    return {"calls": calls,
+            **{n: sum(c[n] for c in calls)
+               for n in ("tokens", "flips", "near", "downstream", "far")}}
+
+
+def moe_plain(mp, x, cfg, rt):
+    """The MoE FFN expert by expert, as its definition reads: the router's
+    choices (``moe._route``), then for each expert the rows that chose it
+    in any slot, its FFN on them, each row's result weighted by its gate
+    in a (T, k, d) buffer summed over k in slot order."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    xt = x.reshape(-1, x.shape[-1])
+    gv, gi, aux = moe._route(xt, L.cast(mp["router"], rt), cfg)
+    T, k = gi.shape
+    out = torch.zeros(T, k, xt.shape[1], dtype=xt.dtype, device=xt.device)
+    for e in range(cfg.n_experts):
+        rows, slots = (gi == e).nonzero(as_tuple=True)
+        if rows.numel():
+            xe = xt[rows]
+            h = F.silu(xe @ L.cast(mp["wg"][e], rt)) \
+                * (xe @ L.cast(mp["wu"][e], rt))
+            out[rows, slots] = h @ L.cast(mp["wd"][e], rt)
+    out = out * gv[:, :, None]
+    y = out[:, 0]
+    for j in range(1, k):
+        y = y + out[:, j]
+    return y.reshape(x.shape), aux
+
+
+def phase_agree_moe() -> None:
+    """olmoe-1b-7b at full width (d 2048, 64 experts of 1024, top 8, 16
+    heads of 128) cut to 2 layers: hand-written kernels (pallas) against
+    eager ops (xla) on the same weights, prompt (4, 1024) and next token:
+    prefill logits, one decode step's logits, K and V (dequantised).  f32
+    within 1e-3; bf16 within 0.1, or twice the eager path's own bf16
+    drift from its f32 result where that is larger (as for zamba).
+
+    The routing of the two paths is compared call by call
+    (``routing_flips``, margin ``MOE_MARGIN``): a flip is allowed at a
+    near-tie and downstream of an earlier flip that attention or the
+    cache carries to the token; a flip at a larger gap fails the run.  Then ``moe_mlp`` alone at full width
+    on one seeded (4096, 2048) input against ``moe_plain`` (one input, so
+    the routing is the same by construction), f32 within 2e-5 and bf16
+    within 2e-2, with its host-clock time per call."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.params import default_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dequantize_kv
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.remat import torch_dtype
+
+    full = get_config("olmoe-1b-7b")
+    cfg = full.replace(n_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 1025), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    tokens, next_tok = tokens[:, :1024], tokens[:, 1024:]
+    model = build_model(cfg)
+    master = model.init(0, device="cuda")
+    route = moe._route
+
+    def run(compute, kv, impl):
+        routes = []
+
+        def recording(xt, router_w, c):
+            gv, gi, aux = route(xt, router_w, c)
+            gates = torch.softmax((xt @ router_w).float(), dim=-1)
+            routes.append((gates, gi, len(routes) % cfg.n_layers))
+            return gv, gi, aux
+        rt = default_config(compute_dtype=compute, kv_cache_dtype=kv,
+                            attn_impl=impl)
+        params = model.cast_params(master, rt)
+        moe._route = recording
+        try:
+            with torch.no_grad():
+                logits, cache = model.prefill_fn(
+                    params, {"tokens": tokens}, rt, max_seq=1088)
+                logits2, cache = model.decode_fn(params, cache, next_tok, rt)
+        finally:
+            moe._route = route
+        torch.cuda.synchronize()
+        lay = cache["layers"]
+        if tuple(logits.shape) != (4, 1, 50688) or cache["pos"] != 1025 \
+                or tuple(lay["k"].shape) != (2, 4, 1088, 16, 128):
+            raise AssertionError(f"agree moe: bad output {logits.shape} "
+                                 f"{lay['k'].shape}")
+        out = {"prefill_logits": logits, "decode_logits": logits2,
+               "k_cache": dequantize_kv(lay["k"], lay.get("k_scale"),
+                                        torch.float32),
+               "v_cache": dequantize_kv(lay["v"], lay.get("v_scale"),
+                                        torch.float32)}
+        if not all(bool(torch.isfinite(t).all()) for t in out.values()):
+            raise AssertionError(f"agree moe: non-finite output ({impl})")
+        return out, routes
+
+    eager32, routes32 = run("float32", "float32", "xla")
+    results = {}
+    for compute, kv in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                        ("bfloat16", "int8")):
+        kernel, kroutes = run(compute, kv, "pallas")
+        eager, eroutes = (eager32, routes32) if compute == "float32" \
+            else run(compute, kv, "xla")
+        rels = {n: _rel(kernel[n], eager[n]) for n in eager}
+        if compute == "float32":
+            tols = {n: 1e-3 for n in rels}
+        else:
+            tols = {n: max(0.1, 2 * _rel(eager[n], eager32[n]))
+                    for n in rels}
+        flips = routing_flips(kroutes, eroutes, cfg.top_k,
+                              MOE_MARGIN[compute], batch=4)
+        key = f"2 layers {compute}/{kv}"
+        results[key] = {"relative": {n: {"rel": rels[n],
+                                         "tolerance": tols[n]}
+                                     for n in rels},
+                        "routing_flips": flips,
+                        "margin": MOE_MARGIN[compute]}
+        bad = {n: r for n, r in rels.items() if r > tols[n]}
+        if bad or flips["far"]:
+            raise AssertionError(f"agree moe {key}: relative differences "
+                                 f"{bad} over {tols}; routing {flips}")
+    del master, eager32, kernel, eager
+    torch.cuda.empty_cache()
+
+    # moe_mlp alone at full width, one seeded input, against the plain
+    # expert-by-expert version
+    mp = {k: v[0] for k, v in
+          build_model(full.replace(n_layers=1)).init(
+              2, device="cuda")["blocks"]["moe"].items()}
+    x32 = _randn(gen, (4, 1024, full.d_model), torch.float32)
+    alone = {}
+    for compute, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        rt = default_config(compute_dtype=compute)
+        x = x32.to(torch_dtype(compute))
+        with torch.no_grad():
+            y, aux = moe.moe_mlp(mp, x, full, rt, None)
+            yp, auxp = moe_plain(mp, x, full, rt)
+            err = check(f"moe_mlp {compute} (4096, 2048)", y, yp, tol)
+            if float(aux) != float(auxp):
+                raise AssertionError(f"moe_mlp {compute}: aux {aux} vs "
+                                     f"{auxp}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                moe.moe_mlp(mp, x, full, rt, None)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 5
+        alone[compute] = {"max_abs_err": err, "tolerance": tol,
+                          "ms_host_clock": ms, "aux": float(aux)}
+    del mp
+    torch.cuda.empty_cache()
+    emit("agree_moe", arch="olmoe-1b-7b", layers=2,
+         measure="||pallas - xla|| / ||xla||", results=results,
+         moe_mlp_alone=alone)
+
+
 def _named_leaves(tree, prefix: str = "") -> list:
     """``[(path, tensor)]`` in ``tree_leaves`` order."""
     if isinstance(tree, dict):
@@ -936,72 +1182,82 @@ def _named_leaves(tree, prefix: str = "") -> list:
 AGREE_TRAIN_TOL, AGREE_TRAIN_FLOORS = 1e-4, 5
 
 
-def phase_agree_train(device: str = "cuda") -> None:
+def agree_train(cfg, shape, device: str = "cuda", draws: int = 4) -> dict:
     """One train step on the card against the same step on the CPU:
-    smollm-135m's seeded parameters cut to 2 layers at full width, a
-    (1, 256) batch of the data pipeline, f32 compute (TF32 off), AdamW at
-    a constant learning rate of 1e-2 with eps 1e-3: the CPU parity tests'
-    optimizer (tests/test_torch_train.py).  At the default eps of 1e-8 a
-    first update is about lr·sign(g) whatever the gradient's size, so it
-    would hold signs, not values; at 1e-3 it is a smooth function of the
-    clipped gradient (whose elements are ~1e-4 here).
+    ``cfg``'s parameters from seed 0, the data pipeline's batch 0 of
+    ``shape``, f32 compute (TF32 off), remat none, AdamW at a constant
+    learning rate of 1e-2 with eps 1e-3: the CPU parity tests' optimizer
+    (tests/test_torch_train.py).  At the default eps of 1e-8 a first
+    update is about lr·sign(g) whatever the gradient's size, so it would
+    hold signs, not values; at 1e-3 it is a smooth function of the
+    clipped gradient.
 
-    The loss is held to 1e-5 relative.  The global gradient norm, each
-    parameter's gradient (the step's loss and autograd, eager attention)
-    and the update of the parameters (after the step minus before, every
-    leaf) are held, in the relative Frobenius norm, to ``AGREE_TRAIN_TOL``
-    (1e-4), except where f32's own floor at this point lies above a
-    ``AGREE_TRAIN_FLOORS``-th of that: then to ``AGREE_TRAIN_FLOORS``
-    times the floor.  The floor is measured here on the CPU, for each of
-    these numbers on its own: the same computation with every parameter
-    moved by one rounding unit (2^-23 relative, random signs, two draws).
-    At the reference's initialisation the attention logits have a
-    standard deviation of about 110 (the attention projections take
-    their fan-in from the head axis), so the softmax is nearly one-hot
-    and one rounding unit at the inputs can move a gradient by more than
-    1e-4: a card that rounds differently at every operation cannot come
-    closer than that floor."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
+    The loss is held to 1e-5 relative, the global gradient norm, each
+    parameter's gradient (the one the step hands its optimizer) and the
+    update of the parameters (after the step minus before, every leaf),
+    in the relative Frobenius norm, to ``AGREE_TRAIN_TOL`` (1e-4); each
+    of them, where f32's own floor at this point lies above a
+    ``AGREE_TRAIN_FLOORS``-th of its bound, to ``AGREE_TRAIN_FLOORS``
+    times the floor.  The floor is measured on the card, for each of
+    these numbers on its own: the same step with every parameter moved
+    by one rounding unit (2^-23 relative, random signs, ``draws``
+    draws), against the unmoved step.  At the reference's initialisation
+    the attention logits have a standard deviation of about 110 at
+    smollm-135m's shapes and ~340 at llava-next-34b's (the attention
+    projections take their fan-in from the head axis), so the softmax is
+    nearly one-hot and one rounding unit at the inputs can move a
+    gradient by more than 1e-4; in an MoE it also flips routing
+    decisions.  A CPU that rounds differently at every operation cannot
+    come closer than that floor.  The card's results stay on the card
+    and the CPU's on the host until each leaf is compared: at full width
+    a family's step holds ~2e9 parameters, and the host holds one CPU
+    step with its optimizer state."""
     from repro_torch.core.params import default_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.model import build_model
-    from repro_torch.optim.optimizers import constant_schedule, make_optimizer
+    from repro_torch.optim.optimizers import (Optimizer, constant_schedule,
+                                              make_optimizer)
     from repro_torch.runtime.loops import tree_leaves, tree_map
-    from repro_torch.runtime.stepfn import (build_train_step,
-                                            cast_params_for_compute)
-    cfg = get_config("smollm-135m").replace(n_layers=2)
-    shape = ShapeConfig("agree_train", 256, 1, "train")
-    rt = default_config(attn_impl="xla")
+    from repro_torch.runtime.stepfn import build_train_step
+    # remat none: the same numbers as any policy, without the recompute
+    rt = default_config(attn_impl="xla", remat_policy="none")
     optimizer = make_optimizer(cfg.optimizer, constant_schedule(1e-2),
                                eps=1e-3)
-    bundle = build_train_step(cfg, shape, rt, None, optimizer)
-    model = build_model(cfg)
-    master = model.init(0, device="cpu")
+    handed = {}
+
+    def update(grads, state, params, inplace=False):
+        handed["grads"] = tree_leaves(grads)
+        return optimizer.update(grads, state, params, inplace=inplace)
+    bundle = build_train_step(cfg, shape, rt, None,
+                              Optimizer(optimizer.init, update))
+    master = build_model(cfg).init(0, device=device)
     names = [n for n, _ in _named_leaves(master)]
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=device).manual_seed(1)
 
     def one_ulp(t):
-        signs = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
+        signs = torch.randint(0, 2, t.shape, generator=gen,
+                              device=t.device, dtype=torch.int8) * 2 - 1
         return t * (1 + 2.0 ** -23 * signs)
 
     def step(dev, start):
+        """The step from ``start`` on ``dev`` -> (loss, gradient norm,
+        gradients, update), the tensors on ``dev``."""
         params = tree_map(lambda t: t.to(dev, copy=True), start)
         batch = SyntheticLM(cfg, shape, rt, dev).batch_at(0)
-        work = tree_map(lambda t: t.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss, _ = model.loss_fn(cast_params_for_compute(work, rt), batch,
-                                    rt, None)
-            grads = torch.autograd.grad(loss, tree_leaves(work))
-        new, _, met = bundle.fn(params, optimizer.init(params), batch)
-        update = [a.cpu() - b for a, b in zip(tree_leaves(new),
-                                               tree_leaves(start))]
+        new, state, met = bundle.fn(params, optimizer.init(params), batch)
+        del state, batch
+        # the step updates its parameters in place (donate_buffers):
+        # after minus before, in place
+        update = [a.sub_(b.to(dev)) for a, b in zip(tree_leaves(new),
+                                                    tree_leaves(start))]
         return (float(met["loss"]), float(met["grad_norm"]),
-                [g.cpu() for g in grads], update)
+                handed.pop("grads"), update)
 
     def fro(xs, ys):
-        diff = sum(float((x - y).square().sum()) for x, y in zip(xs, ys))
-        norm = sum(float(y.square().sum()) for y in ys)
+        sq = lambda t: float(torch.linalg.vector_norm(
+            t.flatten(), dtype=torch.float64)) ** 2
+        diff = sum(sq(x.to(y.device) - y) for x, y in zip(xs, ys))
+        norm = sum(sq(y) for y in ys)
         return (diff / norm) ** 0.5 if norm else diff ** 0.5
 
     def rel(a, b):
@@ -1011,33 +1267,56 @@ def phase_agree_train(device: str = "cuda") -> None:
                 "update_frobenius": fro(ua, ub),
                 "grad": {n: fro([x], [y]) for n, x, y in zip(names, da, db)}}
 
-    card, cpu = step(device, master), step("cpu", master)
+    seconds, t0 = {}, time.time()
+    card = step(device, master)
+    seconds["card_step"] = time.time() - t0
     if not all(bool(torch.isfinite(t).all()) for t in card[2] + card[3]) \
             or not torch.isfinite(torch.tensor(card[:2])).all():
-        raise AssertionError("agree_train: non-finite output on the card")
-    floors = [rel(step("cpu", tree_map(one_ulp, master)), cpu)
-              for _ in range(2)]
-    got = rel(card, cpu)
+        raise AssertionError(f"agree_train {cfg.name}: non-finite output "
+                             "on the card")
+    floors = [rel(step(device, tree_map(one_ulp, master)), card)
+              for _ in range(draws)]
+    seconds["floors"] = time.time() - t0 - seconds["card_step"]
+    cpu = step("cpu", master)
+    got = rel(cpu, card)
+    seconds["cpu_step"] = time.time() - t0 - sum(seconds.values())
 
-    def tol(floor):
-        return max(AGREE_TRAIN_TOL, AGREE_TRAIN_FLOORS * floor)
+    def tol(floor, bound=AGREE_TRAIN_TOL):
+        return max(bound, AGREE_TRAIN_FLOORS * floor)
     floor = {k: max(f[k] for f in floors)
-             for k in ("grad_norm", "update_frobenius")}
+             for k in ("loss", "grad_norm", "update_frobenius")}
     floor["grad"] = {n: max(f["grad"][n] for f in floors) for n in names}
-    tols = {"loss": 1e-5, "grad_norm": tol(floor["grad_norm"]),
+    tols = {"loss": tol(floor["loss"], 1e-5),
+            "grad_norm": tol(floor["grad_norm"]),
             "update_frobenius": tol(floor["update_frobenius"]),
             "grad": {n: tol(f) for n, f in floor["grad"].items()}}
-    emit("agree_train", loss={"cuda": card[0], "cpu": cpu[0]},
-         grad_norm={"cuda": card[1], "cpu": cpu[1]}, relative=got,
-         one_ulp_floor=floor, tolerance=tols, layers=cfg.n_layers,
-         batch=[1, 256], lr=1e-2, eps=1e-3)
     over = [(k, got[k], tols[k]) for k in ("loss", "grad_norm",
                                            "update_frobenius")
             if got[k] > tols[k]]
     over += [(f"grad {n}", got["grad"][n], tols["grad"][n]) for n in names
              if got["grad"][n] > tols["grad"][n]]
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "batch": [shape.global_batch, shape.seq_len], "lr": 1e-2,
+           "eps": 1e-3, "loss": {"cuda": card[0], "cpu": cpu[0]},
+           "grad_norm": {"cuda": card[1], "cpu": cpu[1]},
+           "relative": got, "one_ulp_floor": floor, "tolerance": tols,
+           "draws": draws, "seconds": dict(seconds, all=time.time() - t0)}
+    del master, card, cpu, floors
+    torch.cuda.empty_cache()
     if over:
-        raise AssertionError(f"agree_train: over tolerance: {over}")
+        raise AssertionError(f"agree_train {cfg.name}: over tolerance: "
+                             f"{over}; {json.dumps(out)}")
+    return out
+
+
+def phase_agree_train(device: str = "cuda") -> None:
+    """``agree_train`` on smollm-135m's seeded parameters cut to 2 layers
+    at full width, a (1, 256) batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    emit("agree_train", **agree_train(
+        get_config("smollm-135m").replace(n_layers=2),
+        ShapeConfig("agree_train", 256, 1, "train"), device))
 
 
 def _train_run(argv: list) -> tuple:
@@ -1192,6 +1471,83 @@ def phase_train(root: pathlib.Path) -> dict:
             "busy": train_busy_share()}
 
 
+# the newly trainable families at the depths one card's memory holds in
+# f32 with AdamW (16 bytes a parameter), full width: (arch, config
+# overrides, agreement batch (B, S), timed batch (B, S)).  olmoe-1b-7b:
+# 4 of 16 layers, ~1.9e9 parameters; llava-next-34b: 2 of 60 layers
+# (d 7168, 576 frontend tokens), ~2.0e9; zamba2-7b: one group of two
+# Mamba2 blocks, the shared block and a remainder block, as in
+# phase_agree_zamba.  An agreement batch holds one sequence (its CPU
+# step takes the time), the vlm's 576 frontend positions and 64 of text
+TRAIN_FAMILIES = (
+    ("olmoe-1b-7b", {"n_layers": 4}, (1, 256), (4, 1024)),
+    ("llava-next-34b", {"n_layers": 2}, (1, 640), (2, 2048)),
+    ("zamba2-7b", {"n_layers": 3, "attn_every": 2}, (1, 256), (4, 1024)),
+)
+TRAIN_TIMED_STEPS = 4
+
+
+def train_steps_timed(cfg, batch: tuple) -> dict:
+    """A few train steps of ``build_train_step`` on the card, bf16 compute,
+    remat none, the default AdamW schedule, after one untimed step: ms
+    per step (host clock around a step and a synchronize; the median),
+    tokens per second and peak device memory.  Every loss finite."""
+    import statistics
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.params import default_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import cosine_schedule, make_optimizer
+    from repro_torch.runtime.stepfn import build_train_step
+    B, S = batch
+    shape = ShapeConfig("train_families", S, B, "train")
+    rt = default_config(compute_dtype="bfloat16", remat_policy="none")
+    optimizer = make_optimizer(cfg.optimizer, cosine_schedule(3e-4, 10, 20))
+    bundle = build_train_step(cfg, shape, rt, None, optimizer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg).init(0, device="cuda")
+    state = optimizer.init(params)
+    data = SyntheticLM(cfg, shape, rt, "cuda")
+    ms, losses = [], []
+    for i in range(TRAIN_TIMED_STEPS + 1):
+        batch_i = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = bundle.fn(params, state, batch_i)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    if not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"train_families {cfg.name}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, bundle
+    torch.cuda.empty_cache()
+    med = statistics.median(ms)
+    return {"batch": [B, S], "compute": "bfloat16", "remat": "none",
+            "ms_per_step": med, "ms": ms, "tokens_per_s": B * S / (med / 1e3),
+            "peak_bytes": peak, "losses": losses}
+
+
+def phase_train_families(root: pathlib.Path) -> dict:
+    """For each of ``TRAIN_FAMILIES``: ``agree_train`` (card against CPU,
+    f32) at its cut depth, then ``train_steps_timed``.  The train step
+    launches no kernel (the kernels are forward-only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    out = {}
+    for arch, cut, (ab, asq), timed in TRAIN_FAMILIES:
+        cfg = get_config(arch).replace(**cut)
+        agree = agree_train(cfg, ShapeConfig("agree_train", asq, ab,
+                                             "train"))
+        out[arch] = {"cut": cut, "agree": agree,
+                     "timed": train_steps_timed(cfg, timed)}
+        emit("train_family", **out[arch])
+    return {"families": list(out)}
+
+
 def phase_serve(arch: str, gen_tokens: int) -> dict:
     from repro_torch.launch import serve
     expect = {"prefills": 0, "decode_steps": 0}
@@ -1264,6 +1620,25 @@ def phase_scheduler(arch: str, spec, max_seq: int) -> dict:
     return expect
 
 
+# decode steps of the serve profile's timed and traced windows: the
+# profiler's summary of an MoE decode step (~4,500 launches) takes seconds
+PROFILE_STEPS = 6
+
+
+def phase_serve_profile(arch: str) -> dict:
+    """``scripts/profile_torch_serve.profile``: one prefill (B 4, prompt
+    1024) and ``PROFILE_STEPS`` decode steps timed on the host clock, then
+    traced:
+    prefill and decode ms, tokens per second, the device-busy share of
+    each, the kernels by device time and the serving peak memory.
+    Returns its prefills and decode steps for the launch counts."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_torch_serve import profile
+    rep = profile(arch, steps=PROFILE_STEPS)
+    emit("serve_profile", **rep)
+    return {"prefills": rep["prefills"], "decode_steps": rep["decode_steps"]}
+
+
 def counters() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
@@ -1276,8 +1651,9 @@ def counters() -> dict:
 def launches_per_unit(cfg) -> tuple:
     """Kernel launches of one prefill and of one decode step, derived
     from the model's path."""
-    if cfg.family == "dense":
-        # prefill norms ln1 twice a block (once for the K/V that go to the
+    if cfg.family in ("dense", "moe", "vlm"):
+        # the transformer backbone (the MoE FFN launches no kernel of
+        # these): prefill norms ln1 twice a block (once for the K/V that go to the
         # cache, once inside the block), ln2 once, and the stack once at
         # the end; a decode step norms ln1 and ln2 once each and the stack
         n = cfg.n_layers
@@ -1333,6 +1709,12 @@ def main_paths() -> list:
         mean_rate=4.0, seed=2025, tenants=(
             traffic.Tenant("chat", 0.5, (128, 1024), (8, 24)),
             traffic.Tenant("doc", 0.5, (512, 1024), (8, 16))))
+    # the MoE path: two waves of four at chat and document prompts
+    olmoe_trace = traffic.TraceSpec(
+        name="poisson_smoke_moe", pattern="poisson", n_requests=8,
+        mean_rate=4.0, seed=2026, tenants=(
+            traffic.Tenant("chat", 0.5, (128, 1024), (8, 24)),
+            traffic.Tenant("doc", 0.5, (512, 1024), (8, 16))))
     return [
         ("smollm-135m", lambda: [phase_serve("smollm-135m", 64),
                                  phase_scheduler("smollm-135m", smollm_trace,
@@ -1340,6 +1722,10 @@ def main_paths() -> list:
         ("zamba2-7b", lambda: [phase_serve("zamba2-7b", 32),
                                phase_scheduler("zamba2-7b", zamba_trace,
                                                1088)]),
+        ("olmoe-1b-7b", lambda: [phase_serve("olmoe-1b-7b", 32),
+                                 phase_scheduler("olmoe-1b-7b", olmoe_trace,
+                                                 1088),
+                                 phase_serve_profile("olmoe-1b-7b")]),
     ]
 
 
@@ -1607,15 +1993,21 @@ def phase_tune_cell(path: str, arch: str, shape: str, root: pathlib.Path,
 # walk, so there is none
 STEP_CELL = ("smollm-135m", "decode_card")
 STEP_CAMPAIGN = "smollm-135m:prefill_card,smollm-135m:train_card"
+MOE_STEP_CELL = ("olmoe-1b-7b", "prefill_card")
 
 
 def phase_tune_steps(root: pathlib.Path) -> dict:
-    """The measured step cells at full smollm-135m width and depth."""
+    """The measured step cells at full smollm-135m width and depth, and
+    olmoe-1b-7b's prefill of one 32,768-token prompt at full width and
+    depth (single-cell mode)."""
     cell = phase_tune_cell("tune_cell", *STEP_CELL, root)
     torch.cuda.empty_cache()
     camp = phase_tune("tune_step_campaign", STEP_CAMPAIGN, root,
                       measure_top_k=0)
-    return {"single_cell": cell, "campaign": camp}
+    torch.cuda.empty_cache()
+    moe = phase_tune_cell("tune_cell_moe", *MOE_STEP_CELL, root)
+    torch.cuda.empty_cache()
+    return {"single_cell": cell, "campaign": camp, "moe_single_cell": moe}
 
 
 def main(argv=None) -> int:
@@ -1640,6 +2032,7 @@ def main(argv=None) -> int:
     phase_kernel_cells(records)
     phase_agree()
     phase_agree_zamba()
+    phase_agree_moe()
     phase_agree_train()
     # the main paths: every launch counter is set to 0 just before each
     # path and read right after it
@@ -1666,6 +2059,8 @@ def main(argv=None) -> int:
         # cells' prefill and decode trials launch three
         for path, run, expect in (
                 ("train", phase_train,
+                 {name: 0 for name in counters()}),
+                ("train_families", phase_train_families,
                  {name: 0 for name in counters()}),
                 ("tune_steps", phase_tune_steps,
                  {"rmsnorm": 1, "flash_attention": 1, "flash_decode": 1})):

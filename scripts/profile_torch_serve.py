@@ -3,6 +3,8 @@
 
     python3 scripts/profile_torch_serve.py [--arch ARCH] [--out DIR]
 
+(``profile()`` is the same run as a function: chip_smoke.py calls it.)
+
 Serves ``--arch`` (default smollm-135m; zamba2-7b for the hybrid path) at
 full width and depth, random weights from a seed, bf16 compute,
 hand-written kernels, at batch 4, prompt 1024: times one
@@ -31,33 +33,26 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m")
-    ap.add_argument("--out", default=None,
-                    help="directory for profile.json (default: print only)")
-    ap.add_argument("--kv-dtype", default="bfloat16")
-    ap.add_argument("--steps", type=int, default=16)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_torch_serve: no CUDA device", file=sys.stderr)
-        return 1
-    from torch.profiler import ProfilerActivity, profile
+def profile(arch: str, kv_dtype: str = "bfloat16", steps: int = 16) -> dict:
+    """Serve ``arch`` on the card and return the report described above,
+    with the peak device memory while serving (``peak_bytes``: the bf16
+    parameters, the cache and the activations; the f32 master tree is
+    dropped before) and the prefills and decode steps it ran (warm-up
+    and traces included: what the kernels' launch counters see)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from repro_torch.configs import get_config
     from repro_torch.core.params import default_config
     from repro_torch.models.model import build_model
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    cfg = get_config(args.arch)
+    cfg = get_config(arch)
     rt = default_config(compute_dtype="bfloat16",
-                        kv_cache_dtype=args.kv_dtype, attn_impl="pallas")
+                        kv_cache_dtype=kv_dtype, attn_impl="pallas")
     model = build_model(cfg)
     # the f32 master tree is dropped once it has been cast
     params = model.cast_params(model.init(0, device="cuda"), rt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
@@ -96,8 +91,8 @@ def main(argv=None) -> int:
 
     def traced(fn):
         before = {n: m.launches for n, m in wrappers.items()}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
             _, ms = wall(fn)
         rows = [(e.key, e.device_time_total / 1e3, e.count)
                 for e in prof.key_averages() if e.device_time_total > 0
@@ -129,21 +124,47 @@ def main(argv=None) -> int:
         (logits, cache), prefill_ms = wall(prefill)
         tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
         cache, tok = decode(cache, tok, 2)          # warm-up
-        (cache, tok), decode_ms = wall(lambda: decode(cache, tok, args.steps))
+        (cache, tok), decode_ms = wall(lambda: decode(cache, tok, steps))
         report = {
-            "device": smi, "arch": cfg.name, "batch": 4, "prompt": 1024,
-            "kv_cache": args.kv_dtype, "attn_impl": "pallas",
+            "arch": cfg.name, "batch": 4, "prompt": 1024,
+            "kv_cache": kv_dtype, "attn_impl": "pallas",
             "prefill_ms": prefill_ms,
-            "decode_ms_per_step": decode_ms / args.steps,
-            "decode_steps_timed": args.steps,
+            "prefill_tok_per_s": 4 * 1024 / (prefill_ms / 1e3),
+            "decode_ms_per_step": decode_ms / steps,
+            "decode_tok_per_s": 4 * steps / (decode_ms / 1e3),
+            "decode_steps_timed": steps,
             "prefill_trace": traced(prefill),
-            "decode_trace": traced(lambda: decode(cache, tok, args.steps)),
+            "decode_trace": traced(lambda: decode(cache, tok, steps)),
         }
+    del params, cache
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    report["prefills"], report["decode_steps"] = 3, 2 + 2 * steps
+    torch.cuda.empty_cache()
+    return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--out", default=None,
+                    help="directory for profile.json (default: print only)")
+    ap.add_argument("--kv-dtype", default="bfloat16")
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    report = dict(device=smi, **profile(args.arch, args.kv_dtype,
+                                        args.steps))
     print(json.dumps(report, indent=1))
     if args.out:
         out = pathlib.Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
-        (out / f"profile_{cfg.name}_{args.kv_dtype}.json").write_text(
+        (out / f"profile_{report['arch']}_{args.kv_dtype}.json").write_text(
             json.dumps(report, indent=1) + "\n")
     return 0
 

@@ -372,14 +372,10 @@ class KernelBenchEvaluator:
 
 def require_step_cell(wl: Workload) -> None:
     """Raise ``NotImplementedError`` for a step cell whose model path is
-    not ported (an unported family; training outside the dense family),
+    not ported (the ssm and encdec families, for every kind of step),
     naming its slice of ROADMAP.md queue A."""
-    from repro_torch.runtime.stepfn import require_trainable
-    from repro_torch.models.model import build_model
-    if wl.shp.kind == "train":
-        require_trainable(wl.cfg)
-    else:
-        build_model(wl.cfg)
+    from repro_torch.models.model import require_family
+    require_family(wl.cfg)
 
 
 # a step sample's least length (s): shorter steps are timed in windows

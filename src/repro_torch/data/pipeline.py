@@ -40,8 +40,9 @@ def _tokens_for(seed: int, step: int, lo: int, hi: int, seq: int,
 
 @dataclasses.dataclass
 class SyntheticLM:
-    """batch_at(step) -> {tokens, labels} matching ``input_specs``, on
-    ``device``."""
+    """batch_at(step) -> {tokens, labels[, frontend_embeds]} matching
+    ``input_specs``, on ``device``; a vlm's frontend embeddings are
+    the reference's, 0.02 times a normal draw seeded by the step."""
     cfg: ArchConfig
     shape: ShapeConfig
     rt: TunableConfig
@@ -59,6 +60,12 @@ class SyntheticLM:
         out = {"tokens": toks[:, :-1].contiguous().to(self.device)}
         if "labels" in self.specs:
             out["labels"] = toks[:, 1:].contiguous().to(self.device)
+        if "frontend_embeds" in self.specs:   # vlm stub: patch embeddings
+            s = self.specs["frontend_embeds"]
+            rng = np.random.RandomState(
+                (self.seed * 31 + step * 7 + 13) % (2**31 - 1))
+            emb = torch.from_numpy(rng.standard_normal(s.shape)).to(s.dtype)
+            out["frontend_embeds"] = (emb * 0.02).to(self.device)
         return out
 
 

@@ -205,8 +205,8 @@ def attention_block(p, x, *, cfg, rt: TunableConfig, rules, positions,
     require_no_rules(rules)
     if kv_x is not None:
         raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP.md queue A, the "
-            "other model families: models/encdec.py)")
+            "cross-attention is not ported yet (ROADMAP.md queue A, "
+            "slice 5b: models/encdec.py)")
     q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"], rt))
     k = torch.einsum("bsd,dhk->bshk", x, cast(p["wk"], rt))
     v = torch.einsum("bsd,dhk->bshk", x, cast(p["wv"], rt))

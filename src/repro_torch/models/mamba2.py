@@ -92,11 +92,14 @@ def ssd_chunked(X, Bm, Cm, dt, loga, chunk: int, h0=None):
     dtc = dt.reshape(Bsz, nc, Q, H)
     lac = loga.reshape(Bsz, nc, Q, H)
     cum = torch.cumsum(lac, dim=2)                      # (B,nc,Q,H)
-    # within-chunk
+    # within-chunk.  Above the diagonal the exponent is a sum of decays
+    # (>= 0) that overflows f32 over a long chunk; it is masked to -inf
+    # before the exp, so those entries are 0 as in the reference and the
+    # gradient there is 0 (exp, then a mask, would give 0 * inf = NaN)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=X.device))
-    Lmat = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros_like(diff))
+    Lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
+                                      float("-inf")))
     G = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)         # shared across heads
     scores = G[..., None] * Lmat * dtc[:, :, None, :, :]
     Y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores.to(f32), Xc.to(f32))

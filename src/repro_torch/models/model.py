@@ -2,8 +2,9 @@
 
 ``build_model(cfg)`` returns a :class:`Model` whose functions close over
 the architecture config; ``input_specs`` gives the shapes of every
-workload cell's inputs.  The ``dense`` and ``hybrid`` families are
-ported so far; the others raise (ROADMAP.md, queue A).
+workload cell's inputs.  The ``dense``, ``moe``, ``vlm`` and ``hybrid``
+families are ported; ``ssm`` and ``encdec`` raise, naming their slice
+(``LATER_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -19,8 +20,24 @@ from repro_torch.runtime.remat import torch_dtype
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "vlm": transformer,
+    "moe": transformer,
     "hybrid": zamba,
 }
+# families still to port, and where (xlstm.py; encdec.py with layernorm
+# and cross-attention)
+LATER_FAMILIES = {"ssm": "ROADMAP.md queue A, slice 5b: models/xlstm.py",
+                  "encdec": "ROADMAP.md queue A, slice 5b: models/encdec.py"}
+
+
+def require_family(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port cannot build,
+    naming the slice that brings it."""
+    if cfg.family not in _FAMILY_MODULES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
+            f"({LATER_FAMILIES.get(cfg.family, 'ROADMAP.md queue A')}); "
+            f"only {sorted(_FAMILY_MODULES)} can be built")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -87,11 +104,7 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            "(ROADMAP.md queue A, the other model families); only "
-            f"{sorted(_FAMILY_MODULES)} can be built")
+    require_family(cfg)
     return Model(cfg, _FAMILY_MODULES[cfg.family])
 
 
@@ -100,19 +113,24 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
                 rt: TunableConfig) -> Dict[str, L.ShapeDtype]:
     """Shape/dtype stand-ins for one workload cell (no allocation).
 
-    train  -> {tokens, labels}
-    prefill-> {tokens}
+    train  -> {tokens, labels [, frontend_embeds]}
+    prefill-> {tokens [, frontend_embeds]}
     decode -> {tokens (B,1)}   (cache comes from Model.cache_shapes)
+
+    vlm: ``frontend_embeds`` (B, F, d) in the compute dtype take the
+    first F of the S positions; tokens and labels cover the other S - F.
     """
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"inputs of family {cfg.family!r} are not ported yet "
-            "(ROADMAP.md queue A, the other model families)")
+    require_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     tok = lambda s: L.ShapeDtype((B, s), torch.int32)
     if shape.kind == "decode":
         return {"tokens": tok(1)}
-    out = {"tokens": tok(S)}
+    out = {}
+    if cfg.family == "vlm":
+        F = cfg.frontend_tokens
+        out["frontend_embeds"] = L.ShapeDtype((B, F, cfg.d_model), L.dt(rt))
+        S = S - F
+    out["tokens"] = tok(S)
     if shape.kind == "train":
         out["labels"] = tok(S)
     return out
@@ -121,9 +139,15 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
 def synth_inputs(cfg: ArchConfig, shape: ShapeConfig, rt: TunableConfig,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Materialized random inputs matching ``input_specs``, drawn on the
-    generator's device."""
+    generator's device: tokens uniform over the vocabulary, embeddings
+    standard normal."""
     out = {}
     for name, s in input_specs(cfg, shape, rt).items():
-        out[name] = torch.randint(0, cfg.vocab, s.shape, generator=generator,
-                                  device=generator.device, dtype=s.dtype)
+        if s.dtype.is_floating_point:
+            out[name] = torch.randn(s.shape, generator=generator,
+                                    device=generator.device, dtype=s.dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab, s.shape,
+                                      generator=generator,
+                                      device=generator.device, dtype=s.dtype)
     return out

@@ -1,10 +1,10 @@
 """Dense decoder-only transformer (llama-style).
 
-The layer stack is a Python loop over stacked parameters (leading
-'layers' dim), each layer wrapped by the ``remat_policy`` checkpointing
-of ``runtime/remat.wrap_layer`` in ``forward``.  The dense family's
-``loss_fn`` (training), prefill and decode are ported; the MoE / VLM
-branches are a later slice (ROADMAP.md, queue A).
+Also the backbone for the VLM (frontend embeds prepended) and MoE (FFN
+swapped for the MoE FFN of ``models/moe.py``) families.  The layer stack
+is a Python loop over stacked parameters (leading 'layers' dim), each
+layer wrapped by the ``remat_policy`` checkpointing of
+``runtime/remat.wrap_layer`` in ``forward``.
 
 The KV cache is ``{"layers": {"k", "v"[, "k_scale", "v_scale"]},
 "pos": int}`` with tensors stacked ``(L, B, Smax, Hkv, hd)`` as in the
@@ -20,21 +20,22 @@ import torch.nn.functional as F
 
 from repro_torch.core.params import TunableConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.runtime import remat
 from repro_torch.runtime.loops import scan_layers
 
 
 def block_spec(cfg) -> Dict[str, L.PSpec]:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A, "
-            "the other model families)")
-    return {
+    out = {
         "ln1": L.rmsnorm_spec(cfg.d_model),
         "ln2": L.rmsnorm_spec(cfg.d_model),
         "attn": L.attn_spec(cfg),
-        "mlp": L.mlp_spec(cfg),
     }
+    if cfg.family == "moe":
+        out["moe"] = moe.moe_spec(cfg)
+    else:
+        out["mlp"] = L.mlp_spec(cfg)
+    return out
 
 
 def spec(cfg) -> Dict:
@@ -48,9 +49,7 @@ def spec(cfg) -> Dict:
 def _ffn(bp, h, cfg, rt, rules):
     """FFN sub-block -> (y, aux_loss)."""
     if "moe" in bp:
-        raise NotImplementedError(
-            "the MoE FFN is not ported yet (ROADMAP.md queue A, the other "
-            "model families: models/moe.py)")
+        return moe.moe_mlp(bp["moe"], h, cfg, rt, rules)
     return L.mlp_block(bp["mlp"], h, cfg=cfg, rt=rt, rules=rules), 0.0
 
 
@@ -64,13 +63,12 @@ def _block(bp, x, positions, cfg, rt: TunableConfig, rules):
 
 
 def embed_inputs(p, batch, cfg, rt: TunableConfig, rules):
-    """tokens -> (B,S,d)."""
+    """tokens (+ optional precomputed frontend embeddings) -> (B,S,d)."""
     L.require_no_rules(rules)
-    if "frontend_embeds" in batch:
-        raise NotImplementedError(
-            "frontend embeddings are not ported yet (ROADMAP.md queue A, "
-            "the other model families: vlm)")
-    return L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt)
+    if "frontend_embeds" in batch:  # vlm stub: prepend patch embeds
+        h = torch.cat([L.cast(batch["frontend_embeds"], rt), h], dim=1)
+    return h
 
 
 def forward(p, h, positions, cfg, rt: TunableConfig, rules):
@@ -103,13 +101,18 @@ AUX_COEF = 0.01
 
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy (f32 logits over the padded vocab)
-    plus the weighted aux loss -> (loss, {"xent", "aux"})."""
+    plus the weighted aux loss -> (loss, {"xent", "aux"}).  Frontend
+    positions carry no labels: the labels cover the last positions, and
+    the logits are formed for those only (row by row the same numbers as
+    the reference's slice of the full logits)."""
     h = embed_inputs(p, batch, cfg, rt, rules)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     h, aux = forward(p, h, positions, cfg, rt, rules)
-    logits = L.unembed(p["embed"], h, cfg, rt, rules)
-    loss = L.xent_loss(logits, batch["labels"], cfg)
+    labels = batch["labels"]
+    logits = L.unembed(p["embed"], h[:, S - labels.shape[1]:], cfg, rt,
+                       rules)
+    loss = L.xent_loss(logits, labels, cfg)
     return loss + AUX_COEF * aux, {"xent": loss, "aux": aux}
 
 

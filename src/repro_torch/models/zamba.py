@@ -3,8 +3,7 @@
 81 Mamba2 blocks; a single shared transformer block (attn + MLP, weights
 shared) is invoked after every ``attn_every``-th Mamba2 block.  Decode
 carries SSM/conv states for every Mamba2 block plus a KV cache per shared-
-block invocation.  This slice carries prefill and decode; ``loss_fn`` is
-the training slice's (ROADMAP.md, queue A).
+block invocation.
 
 The cache is ``{"groups": {"ssm", "conv"}, "kv": {"k", "v"[, scales]},
 "pos": int[, "rem": {"ssm", "conv"}]}`` with the reference's stacked
@@ -64,9 +63,10 @@ def _shared_block(sp, x, positions, cfg, rt, rules):
 
 
 def forward(p, h, positions, cfg, rt: TunableConfig, rules):
-    """The layer stack on (B,S,d) -> final-normed (B,S,d), carrying the
-    residual between groups in ``remat.carry_dtype`` as the reference
-    does (its recompute wrapper belongs to the training slice)."""
+    """The layer stack on (B,S,d) -> final-normed (B,S,d): each group
+    (its Mamba2 blocks, then the shared block) runs under the remat
+    policy, the residual between groups carried in
+    ``remat.carry_dtype``, as in the reference."""
     def inner(xc, mp):
         return mamba2.mamba_block(mp, xc, cfg, rt, rules), None
 
@@ -76,8 +76,8 @@ def forward(p, h, positions, cfg, rt: TunableConfig, rules):
         x = _shared_block(p["shared"], x, positions, cfg, rt, rules)
         return remat.to_carry(x, rt), None
 
-    h, _ = scan_layers(group, remat.to_carry(h, rt), p["groups"],
-                       unroll=rt.unroll_layers)
+    h, _ = scan_layers(remat.wrap_layer(group, rt), remat.to_carry(h, rt),
+                       p["groups"], unroll=rt.unroll_layers)
     h = remat.from_carry(h, rt)
     if "rem" in p:
         h, _ = scan_layers(inner, h, p["rem"], unroll=rt.unroll_layers)
@@ -85,9 +85,16 @@ def forward(p, h, positions, cfg, rt: TunableConfig, rules):
 
 
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
-    raise NotImplementedError(
-        "the hybrid family's loss_fn is not ported yet (ROADMAP.md queue "
-        "A, slice 5: the other families); training runs the dense family")
+    """Mean next-token cross-entropy -> (loss, {}).  Under the train step
+    (eager ops, ``attn_impl="xla"``) the Mamba2 scan is ``ssd_chunked``;
+    the kernels are forward-only."""
+    L.require_no_rules(rules)
+    h = L.embed(p["embed"], batch["tokens"], rt)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    h = forward(p, h, positions, cfg, rt, rules)
+    logits = L.unembed(p["embed"], h, cfg, rt, rules)
+    return L.xent_loss(logits, batch["labels"], cfg), {}
 
 
 # ------------------------------------------------------------- serving

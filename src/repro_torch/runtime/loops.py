@@ -35,14 +35,27 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def tree_unflatten(like, leaves):
+    """The tree of ``like``'s structure whose leaves are ``leaves`` (in
+    ``tree_leaves`` order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def scan_layers(body, carry, xs, *, unroll: bool = False, length=None):
     """``body(carry, x_i) -> (carry, y_i)`` over the leading dim of every
     tensor in ``xs``; returns the last carry and the stacked ``y``s (or
-    None when every ``y_i`` is None).  Slices are views of ``xs``."""
+    None when every ``y_i`` is None).  Slices are views of ``xs``, taken
+    by one ``unbind`` per tensor: its backward stacks the slices'
+    gradients once, where indexing layer by layer would add a zero-filled
+    gradient of the whole stacked tensor per layer."""
     n = length if length is not None else tree_leaves(xs)[0].shape[0]
+    slices = [a.unbind(0) for a in tree_leaves(xs)] if xs is not None \
+        else None
     ys = []
     for i in range(n):
-        xi = tree_map(lambda a: a[i], xs) if xs is not None else None
+        xi = tree_unflatten(xs, [s[i] for s in slices]) if xs is not None \
+            else None
         carry, y = body(carry, xi)
         ys.append(y)
     if not ys or all(y is None for y in ys):

@@ -28,9 +28,12 @@ Kinds (``shape.kind``):
 ``donate_buffers`` keeps its meaning: true updates the parameters and
 the optimizer state (train: the optimizer's in-place update, leaf by
 leaf) or the cache (decode) in place and returns the same tensors;
-false returns new tensors and leaves the inputs as they were.  On one device ``shard_strategy``, ``grad_comm_dtype`` and
-``fuse_grad_collectives`` reach nothing (there is no collective); a mesh
-of more than one device raises, naming the multi-device slice.
+false returns new tensors and leaves the inputs as they were.  On one
+device ``shard_strategy``, ``grad_comm_dtype`` and
+``fuse_grad_collectives`` reach nothing (there is no collective), nor,
+in an MoE cell, ``comm_codec`` and the config's ``capacity_factor``
+(only the expert-parallel paths read them); a mesh of more than one
+device raises, naming the multi-device slice.
 """
 from __future__ import annotations
 
@@ -43,9 +46,10 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.params import TunableConfig
 from repro_torch.models import layers as L
-from repro_torch.models.model import Model, build_model, input_specs
+from repro_torch.models.model import (Model, build_model, input_specs,
+                                     require_family)
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
-from repro_torch.runtime.loops import tree_leaves, tree_map
+from repro_torch.runtime.loops import tree_leaves, tree_map, tree_unflatten
 from repro_torch.runtime.remat import torch_dtype
 
 MULTI_DEVICE = "ROADMAP.md queue A, slice 7: multi-device"
@@ -53,6 +57,9 @@ MULTI_DEVICE = "ROADMAP.md queue A, slice 7: multi-device"
 # on one device, recorded in every bundle's notes
 ONE_DEVICE_NO_OPS = ("shard_strategy", "grad_comm_dtype",
                      "fuse_grad_collectives")
+# and, in an MoE cell, the expert-parallel paths' wire dtype (a knob) and
+# expert capacity (a config field): the one-device MoE path reads neither
+MOE_ONE_DEVICE_NO_OPS = ("comm_codec", "capacity_factor")
 
 
 def require_one_device(mesh) -> None:
@@ -69,13 +76,10 @@ def require_one_device(mesh) -> None:
 
 
 def require_trainable(cfg: ArchConfig) -> None:
-    """Raise for a family whose training path is not ported."""
-    build_model(cfg)                      # raises for unported families
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not ported yet: the "
-            f"{cfg.family} loss_fn comes with ROADMAP.md queue A, slice 5 "
-            "(the other families)")
+    """Raise for a family whose training path is not ported: every family
+    the port builds has its ``loss_fn`` (dense, moe, vlm, hybrid), so
+    this is ``require_family``, which names the slice of the others."""
+    require_family(cfg)
 
 
 def cast_params_for_compute(params, rt: TunableConfig):
@@ -135,9 +139,14 @@ def _meta_params(model: Model):
                     model.param_shapes())
 
 
-def _notes(rt: TunableConfig, **extra) -> Dict[str, Any]:
-    return {"one_device_no_ops": {k: getattr(rt, k)
-                                  for k in ONE_DEVICE_NO_OPS}, **extra}
+def _notes(cfg: ArchConfig, rt: TunableConfig, **extra) -> Dict[str, Any]:
+    notes = {"one_device_no_ops": {k: getattr(rt, k)
+                                   for k in ONE_DEVICE_NO_OPS}}
+    if cfg.family == "moe":
+        notes["moe_one_device_no_ops"] = {
+            "comm_codec": rt.comm_codec,
+            "capacity_factor": cfg.capacity_factor}
+    return dict(notes, **extra)
 
 
 def _grad(loss, leaves):
@@ -145,11 +154,6 @@ def _grad(loss, leaves):
     # the reference
     return torch.autograd.grad(loss, leaves, allow_unused=True,
                                materialize_grads=True)
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 # ===================================================================== train
@@ -160,7 +164,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, rt: TunableConfig,
     require_trainable(cfg)
     model = build_model(cfg)
     optimizer = optimizer or make_optimizer(cfg.optimizer)
-    notes = _notes(rt, attn_impl=rt.attn_impl)
+    notes = _notes(cfg, rt, attn_impl=rt.attn_impl)
     if rt.attn_impl == "pallas":
         # the kernels are forward-only: the gradient step takes attention
         # and norm through the eager ops, as the reference's does
@@ -204,7 +208,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, rt: TunableConfig,
         del work, leaves
         with torch.no_grad():
             new_p, new_s, met = optimizer.update(
-                _unflatten(params, grads), opt_state, params,
+                tree_unflatten(params, grads), opt_state, params,
                 inplace=donate)
         return new_p, new_s, dict(met, loss=loss.detach())
 
@@ -230,7 +234,7 @@ def build_prefill_step(cfg: ArchConfig, shape: ShapeConfig,
 
     return StepBundle(step, (_serve_params(model, rt),
                              input_specs(cfg, shape, rt)),
-                      None, "prefill", notes=_notes(rt))
+                      None, "prefill", notes=_notes(cfg, rt))
 
 
 def build_decode_step(cfg: ArchConfig, shape: ShapeConfig,
@@ -250,7 +254,7 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeConfig,
             return model.decode_fn(params, cache, tokens, rt, None)
 
     return StepBundle(step, (_serve_params(model, rt), cache, tokens),
-                      None, "decode", notes=_notes(rt),
+                      None, "decode", notes=_notes(cfg, rt),
                       fill_cache=shape.cache_filled)
 
 

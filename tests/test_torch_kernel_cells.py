@@ -175,8 +175,8 @@ def test_dispatch_stack_leaves_step_campaigns_unchanged(tmp_path):
 
 
 # a step cell whose family the port has no model for yet
-UNPORTED_STEP = "olmoe-1b-7b:train_4k"
-FAMILIES = "the other model families"
+UNPORTED_STEP = "xlstm-1.3b:train_4k"
+FAMILIES = "slice 5b"
 
 
 def test_step_cells_refused_before_any_trial(tmp_path):
@@ -227,7 +227,7 @@ def _step(arch, shape, mesh=None):
 @pytest.mark.parametrize("build, slice_", [
     (lambda: _step("smollm-135m", "train_4k", {"data": 16, "model": 16}),
      "slice 7"),
-    (lambda: _step("zamba2-7b", "train_4k"), "slice 5"),
+    (lambda: _step("xlstm-1.3b", "train_4k"), "slice 5b"),
     (lambda: trial.RooflineEvaluator(), "slice 8"),
     (lambda: tune.main(["--device", "cpu", "--cells",
                         "kernel:rmsnorm:tiny", "--workers", "2"]),

@@ -115,16 +115,18 @@ print("imported", len(mods))
 
 def test_unported_parts_raise():
     from repro_torch.models.model import build_model
-    from repro_torch.models import layers, transformer, zamba
+    from repro_torch.models import layers, moe, zamba
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_configs.get_reduced("xlstm-1.3b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_configs.get_reduced("olmoe-1b-7b"))
+        build_model(port_configs.get_reduced("seamless-m4t-medium"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.embed_inputs(None, {"frontend_embeds": None}, None,
-                                 None, None)
+        layers.attention_block(None, None, cfg=None, rt=None, rules=None,
+                               positions=None, kv_x=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zamba.loss_fn(None, None, None, None, None)
+        moe.moe_mlp(None, None, None, None, object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        zamba.loss_fn(None, None, None, None, object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         layers.require_no_rules(object())
 

@@ -247,11 +247,13 @@ def test_dispatch_evaluator_accepts_step_cells(reduced_cells):
     disp = kc.DispatchEvaluator(device="cpu",
                                 cache_dir=reduced_cells / "t")
     for cell in ("smollm-135m:train_card", "smollm-135m:decode_card",
-                 "zamba2-7b:prefill_card"):
+                 "zamba2-7b:prefill_card", "zamba2-7b:train_card",
+                 "olmoe-1b-7b:prefill_card", "llava-next-34b:train_card"):
         disp.accepts(campaign.parse_cells(cell)[0])
-    # training outside the dense family is not ported: refused up front
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        disp.accepts(campaign.parse_cells("zamba2-7b:train_card")[0])
+    # the ssm and encdec families are not ported: refused up front
+    for cell in ("xlstm-1.3b:train_card", "seamless-m4t-medium:prefill_card"):
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            disp.accepts(campaign.parse_cells(cell)[0])
     res = disp(Workload("smollm-135m", "prefill_card"), base())
     assert not res.crashed, res.error
     assert any(p.name.startswith("smollm-135m__prefill_card__pod")
@@ -288,6 +290,20 @@ def test_single_cell_tune_on_a_reduced_cell(reduced_cells, capsys):
     assert rep["n_trials"] == 6 and rep["log"][0]["name"] == "baseline"
     assert not any(e["result"]["crashed"] for e in rep["log"])
     assert not list((reduced_cells / "tuning").glob("*"))
+
+
+def test_single_cell_walk_of_an_moe_prefill_cell(reduced_cells):
+    """``tune --arch olmoe-1b-7b --shape prefill_card`` walks the MoE
+    family's prefill at a reduced cell, every trial a measured step."""
+    out = reduced_cells / "moe"
+    assert tune.main(["--device", "cpu", "--arch", "olmoe-1b-7b",
+                      "--shape", "prefill_card", "--checkpoint-dir",
+                      str(out)]) == 0
+    rep = json.loads((out / "reports" /
+                      "olmoe-1b-7b__prefill_card__pod.json").read_text())
+    assert 1 <= rep["n_trials"] <= 10 and rep["log"][0]["name"] == "baseline"
+    assert not any(e["result"]["crashed"] for e in rep["log"])
+    assert all(e["result"]["cost_s"] > 0 for e in rep["log"])
 
 
 def test_single_cell_refusals(reduced_cells, monkeypatch):

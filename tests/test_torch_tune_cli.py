@@ -101,11 +101,11 @@ def test_single_cell_mode_raises_naming_slice_4(tmp_results):
     """Single-cell mode runs (tests/test_torch_step_cells.py); a cell
     whose model path is not ported raises naming its slice, before any
     trial."""
-    with pytest.raises(NotImplementedError, match="other model families"):
-        tune.main(["--device", "cpu", "--arch", "olmoe-1b-7b", "--shape",
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        tune.main(["--device", "cpu", "--arch", "xlstm-1.3b", "--shape",
                    "train_4k"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tune.tune_cell("zamba2-7b", "train_4k", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        tune.tune_cell("seamless-m4t-medium", "train_4k", device="cpu")
     assert not (tmp_results / "tuning").exists()
 
 
@@ -114,7 +114,7 @@ def test_step_cells_raise_naming_slice_4(tmp_results):
     whose model path is not ported raises naming its slice, before any
     trial."""
     ckpt = tmp_results / "camp"
-    with pytest.raises(NotImplementedError, match="other model families"):
+    with pytest.raises(NotImplementedError, match="slice 5b"):
         tune.main(["--device", "cpu", "--cells", "xlstm-1.3b:train_4k",
                    "--checkpoint-dir", str(ckpt)])
     assert not list(ckpt.glob("*.json"))
