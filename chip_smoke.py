@@ -5,9 +5,10 @@
 
 Drives the port's two serving paths (``repro_torch.launch.serve`` and
 ``repro_torch.serving.scheduler.BatchScheduler``) on smollm-135m (dense),
-zamba2-7b (hybrid: Mamba2 + shared attention) and olmoe-1b-7b (MoE: 64
-experts, top 8), each at its full width and depth with random weights
-from a seed, builds the four
+zamba2-7b (hybrid: Mamba2 + shared attention), olmoe-1b-7b (MoE: 64
+experts, top 8), xlstm-1.3b (ssm: mLSTM and sLSTM blocks) and
+seamless-m4t-medium (encoder-decoder with cross-attention), each at its
+full width and depth with random weights from a seed, builds the four
 hand-written CUDA kernels from ``src/repro_torch/csrc`` and holds each
 against its plain PyTorch version on the card, and shows by the
 wrappers' launch counters that each path went through its kernels.
@@ -17,11 +18,13 @@ kernel at the tuner's kernel-cell shapes and tiles, against its plain
 version, every call after a NaN fill of the SMs' shared memory), agree
 (kernel path vs eager path of the whole model, per model; for olmoe
 ``agree_moe`` also counts the routing decisions that differ and holds
-the MoE FFN alone against its expert-by-expert version), agree_train
-(one f32 train step on the card against the CPU), then for each model
-serve, scheduler and launches (every counter set to 0 just before the
-path and read right after it; olmoe's path also profiles a prefill and
-decode steps, ``serve_profile``), then two campaigns of the port's tuner
+the MoE FFN alone against its expert-by-expert version; ``agree_xlstm``
+and ``agree_encdec`` hold each number to a floor measured on the card),
+agree_train (one f32 train step on the card against the CPU), then for
+each model serve, scheduler and launches (every counter set to 0 just
+before the path and read right after it; the paths of olmoe, xlstm and
+seamless also profile a prefill and decode steps, ``serve_profile``),
+then two campaigns of the port's tuner
 (``repro_torch.launch.tune.tune_campaign``, strategy ``tree``, measured
 re-rank of the top 2, telemetry on), each a path of its own for the
 counters: ``tune`` walks the serve cell ``serve:smollm-135m:poisson_card``
@@ -29,11 +32,13 @@ counters: ``tune`` walks the serve cell ``serve:smollm-135m:poisson_card``
 kernel cells ``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``;
 then three more paths: ``train`` (``repro_torch.launch.train`` at full
 width and depth, a stop and a resume; it launches no kernel),
-``train_families`` (for olmoe-1b-7b, llava-next-34b and zamba2-7b at
-full width and a cut depth: one train step on the card against the CPU,
-then timed steps; no kernel) and ``tune_steps`` (single-cell mode on
-``smollm-135m:decode_card`` and ``olmoe-1b-7b:prefill_card``, a campaign
-over smollm's ``prefill_card`` and ``train_card``).  Checkpoints, timing
+``train_families`` (for olmoe-1b-7b, llava-next-34b, zamba2-7b,
+xlstm-1.3b and seamless-m4t-medium at full width: one train step on the
+card against the CPU at a cut depth, then timed steps, the last two at
+full depth; no kernel) and ``tune_steps`` (single-cell mode on
+``smollm-135m:decode_card``, ``olmoe-1b-7b:prefill_card`` and
+``xlstm-1.3b:long_500k``, a campaign over smollm's ``prefill_card`` and
+``train_card``).  Checkpoints, timing
 caches and telemetry go to a fresh temporary directory, so no trial is
 replayed from an earlier run.  Any failure raises and the run exits
 non-zero.
@@ -244,7 +249,8 @@ def _randn(gen, shape, dtype):
 # rmsnorm's timed shapes (rows, d, x dtype): the serving paths' prefill
 # (4*1024 rows) and decode (4 rows) at smollm-135m's width 576,
 # zamba2-7b's 3584 (d_model) and 7168 (the Mamba2 blocks' gated output)
-# and olmoe-1b-7b's 2048, in bf16 and, at prefill, in f32 (the knob
+# olmoe-1b-7b's and xlstm-1.3b's 2048 and seamless-m4t-medium's 1024,
+# in bf16 and, at prefill, in f32 (the knob
 # space's default compute dtype)
 RMSNORM_TIMED = ((4 * 1024, 576, torch.bfloat16), (4, 576, torch.bfloat16),
                  (4 * 1024, 3584, torch.bfloat16),
@@ -256,7 +262,10 @@ RMSNORM_TIMED = ((4 * 1024, 576, torch.bfloat16), (4, 576, torch.bfloat16),
                  # olmoe-1b-7b (d_model 2048): prefill and decode
                  (4 * 1024, 2048, torch.bfloat16),
                  (4, 2048, torch.bfloat16),
-                 (4 * 1024, 2048, torch.float32))
+                 (4 * 1024, 2048, torch.float32),
+                 # seamless-m4t-medium (d_model 1024): decoder prefill
+                 (4 * 1024, 1024, torch.bfloat16),
+                 (4 * 1024, 1024, torch.float32))
 
 
 def rmsnorm_timed(gen, ops, rows: int, d: int, dtype) -> dict:
@@ -398,6 +407,7 @@ def kernels_flash_attention(gen) -> dict:
         ((1, 300, 2, 256), True, (128, 128)),     # the largest hd
         ((2, 77, 2, 16), False, (128, 128)),      # the smallest hd
         ((4, 1024, 16, 128), True, (128, 128)),   # olmoe-1b-7b prefill
+        ((4, 1024, 16, 64), True, (128, 128)),    # seamless-m4t-medium
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, causal, (bq, bkv) in cases:
@@ -469,7 +479,10 @@ def kernels_flash_attention(gen) -> dict:
               timed((4, 746, 32, 112), torch.float32),
               # olmoe-1b-7b (MHA, 16 heads of 128) in bf16 and f32
               timed((4, 1024, 16, 128), torch.bfloat16),
-              timed((4, 1024, 16, 128), torch.float32)]
+              timed((4, 1024, 16, 128), torch.float32),
+              # seamless-m4t-medium's decoder (MHA, 16 heads of 64)
+              timed((4, 1024, 16, 64), torch.bfloat16),
+              timed((4, 1024, 16, 64), torch.float32)]
     # the headline shape is bf16: flash_tc_kernel; f32 runs flash_f32_kernel
     return {"name": "flash_attention", "route": "cuda",
             "source": BF16_SOURCE,
@@ -545,17 +558,20 @@ def kernels_flash_decode(gen) -> dict:
             if not all(torch.equal(a, got) for a in again):
                 raise AssertionError(f"flash_decode {kv} hd{hd}: repeated "
                                      "calls differ")
-    # olmoe-1b-7b: H = Hkv = 16 heads of 128, the serving path's cache of
-    # 1024 + 32 rows in a 2048-row buffer, each cache type
-    for kv in ("bfloat16", "float32", "int8"):
-        tol = TOL[torch.float32] if kv == "float32" else 2e-2
-        q, kc, vc, ks, vs = make(4, 2048, 16, 16, 128, kv)
-        for length in (1, 1025, 1056, 2048):
-            got = ops.flash_decode(q, kc, vc, length, ks, vs, block_kv=128)
-            worst = max(worst, check(
-                f"flash_decode {kv} olmoe length={length}", got,
-                plain(q, kc, vc, ks, vs, length), tol))
-        del q, kc, vc, ks, vs
+    # olmoe-1b-7b: H = Hkv = 16 heads of 128, and seamless-m4t-medium:
+    # 16 heads of 64; the serving path's cache of 1024 + 32 rows in a
+    # 2048-row buffer, each cache type
+    for name, hd in (("olmoe", 128), ("seamless", 64)):
+        for kv in ("bfloat16", "float32", "int8"):
+            tol = TOL[torch.float32] if kv == "float32" else 2e-2
+            q, kc, vc, ks, vs = make(4, 2048, 16, 16, hd, kv)
+            for length in (1, 1025, 1056, 2048):
+                got = ops.flash_decode(q, kc, vc, length, ks, vs,
+                                       block_kv=128)
+                worst = max(worst, check(
+                    f"flash_decode {kv} {name} length={length}", got,
+                    plain(q, kc, vc, ks, vs, length), tol))
+            del q, kc, vc, ks, vs
     # one query head per KV head (as zamba2-7b) at the other bf16 lane-group
     # sizes (hd 16, 32, 64, 128), with a ragged last tile and spans that
     # merge
@@ -622,11 +638,14 @@ def kernels_flash_decode(gen) -> dict:
     zamba = (4, 1088, 32, 32, 112)
     glm4, nemotron = (2, 32768, 32, 2, 128), (2, 640, 96, 8, 192)
     olmoe = (4, 2048, 16, 16, 128)
+    seamless = (4, 2048, 16, 16, 64)
     shapes = [timed("bfloat16", 1056), timed("int8", 1056),
               timed("bfloat16", 2048), timed("bfloat16", 1056, zamba),
               timed("int8", 1056, zamba), timed("bfloat16", 20001, glm4),
               timed("int8", 20001, glm4), timed("bfloat16", 640, nemotron),
-              timed("bfloat16", 1056, olmoe), timed("int8", 1056, olmoe)]
+              timed("bfloat16", 1056, olmoe), timed("int8", 1056, olmoe),
+              timed("bfloat16", 1056, seamless),
+              timed("int8", 1056, seamless)]
     # decode_kernel lives in the header; flash_decode.cu is its entry point
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cuh",
@@ -956,6 +975,180 @@ def phase_agree_zamba() -> None:
     torch.cuda.empty_cache()
     emit("agree", arch="zamba2-7b", measure="||pallas - xla|| / ||xla||",
          results=out)
+
+
+def agree_serving(arch: str, model, master, batch, next_toks, max_seq: int,
+                  runs, states, bound_bf16: bool = True) -> dict:
+    """Kernel path (attn_impl=pallas) against eager path (xla) of one
+    model on the same weights, inputs and decode tokens, for each
+    (compute, kv cache) of ``runs``: prefill logits, the logits of each
+    decode step (every run decodes ``next_toks``, so no run's own argmax
+    sends it elsewhere) and the tensors ``states(cache)`` names after the
+    last step.  Both are measured on the card in this run beside a floor:
+    random weights at the reference's initialisation amplify a rounding
+    step through the blocks (at xlstm-1.3b's width one mLSTM block moves
+    its output ~1e-4 under a 1e-7 move of its input).  f32 is held to
+    1e-3, or to ``AGREE_TRAIN_FLOORS`` times the distance the eager path
+    moves when every parameter moves by one rounding unit (the two paths
+    differ by summation order); bf16 to 2e-2, or, where bf16 rounding
+    alone moves the eager path further than 1e-2 from its own f32
+    result, to twice that distance.  With ``bound_bf16`` false the bf16
+    differences are reported beside that distance, not bounded (at a
+    depth where bf16 rounding decorrelates the eager path from its own
+    f32 result, no bound is left to hold)."""
+    from repro_torch.core.params import default_config
+    from repro_torch.runtime.loops import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def one_ulp(t):
+        signs = torch.randint(0, 2, t.shape, generator=gen,
+                              device=t.device, dtype=torch.int8) * 2 - 1
+        return t * (1 + 2.0 ** -23 * signs)
+
+    def run(compute, kv, impl, weights=master):
+        rt = default_config(compute_dtype=compute, kv_cache_dtype=kv,
+                            attn_impl=impl)
+        params = model.cast_params(weights, rt)
+        with torch.no_grad():
+            logits, cache = model.prefill_fn(params, batch, rt,
+                                             max_seq=max_seq)
+            out = {"prefill_logits": logits}
+            for i in range(next_toks.shape[1]):
+                logits, cache = model.decode_fn(params, cache,
+                                                next_toks[:, i:i + 1], rt)
+                out[f"decode_logits_{i}"] = logits
+        torch.cuda.synchronize()
+        out.update(states(cache))
+        if not all(bool(torch.isfinite(t).all()) for t in out.values()):
+            raise AssertionError(f"agree {arch}: non-finite output "
+                                 f"({compute}/{kv} {impl})")
+        return out
+
+    eager32 = run("float32", "float32", "xla")
+    moved = run("float32", "float32", "xla", tree_map(one_ulp, master))
+    floor = {n: _rel(moved[n], eager32[n]) for n in eager32}
+    del moved
+    res = {"f32_one_ulp_floor": floor}
+    for compute, kv in runs:
+        kernel = run(compute, kv, "pallas")
+        eager = eager32 if compute == "float32" else run(compute, kv, "xla")
+        rels = {n: _rel(kernel[n], eager[n]) for n in eager}
+        if compute == "float32":
+            tols = {n: max(1e-3, AGREE_TRAIN_FLOORS * floor[n])
+                    for n in rels}
+        else:
+            drift = {n: _rel(eager[n], eager32[n]) for n in rels}
+            tols = {n: max(2e-2, 2 * drift[n]) if bound_bf16 else None
+                    for n in rels}
+        key = f"{compute}/{kv}"
+        res[key] = {n: {"rel": rels[n], "tolerance": tols[n]} for n in rels}
+        if compute != "float32":
+            for n in rels:
+                res[key][n]["bf16_drift"] = drift[n]
+        bad = {n: r for n, r in rels.items()
+               if tols[n] is not None and r > tols[n]}
+        if bad:
+            raise AssertionError(f"agree {arch} {key}: relative differences "
+                                 f"{bad} over {tols}")
+    return res
+
+
+def phase_agree_xlstm() -> None:
+    """xlstm-1.3b at full width (d 2048, 4 heads of 512, chunk 256):
+    kernel path against eager path (``agree_serving``) at a prompt of
+    (4, 1024) and 4 decode steps, f32 and bf16; the states compared are
+    every mLSTM and sLSTM state.  The only kernel on this path is
+    rmsnorm.  Two cuts: one mLSTM and one sLSTM block (layout [1:1]),
+    every number bounded; and one group of the published layout (7 mLSTM
+    blocks, then an sLSTM block), f32 bounded, bf16 reported beside its
+    drift (bf16 rounding decorrelates the eager path from its own f32
+    result over the group: ~100 %)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    full = get_config("xlstm-1.3b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, full.vocab, (4, 1028), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    out = {}
+    for label, cut, bound_bf16 in (
+            ("2 blocks (1 mLSTM, 1 sLSTM)",
+             {"n_layers": 2, "slstm_every": 2}, True),
+            ("8 blocks (7 mLSTM, 1 sLSTM)", {"n_layers": 8}, False)):
+        cfg = full.replace(**cut)
+        model = build_model(cfg)
+        master = model.init(0, device="cuda")
+        mpg = cfg.slstm_every - 1
+
+        def states(cache):
+            if cache["pos"] != 1028 or tuple(cache["m_h"].shape) != (
+                    1, mpg, 4, 4, 512, 512):
+                raise AssertionError(f"agree xlstm: bad state "
+                                     f"{cache['m_h'].shape} at "
+                                     f"{cache['pos']}")
+            return {"m_h": cache["m_h"], "m_n": cache["m_n"],
+                    **{f"s_{n}": t for n, t in zip("cnmh", cache["s"])}}
+        out[label] = agree_serving(
+            "xlstm-1.3b", model, master, {"tokens": tokens[:, :1024]},
+            tokens[:, 1024:], 1028,
+            (("float32", "float32"), ("bfloat16", "bfloat16")), states,
+            bound_bf16)
+        del master
+        torch.cuda.empty_cache()
+    emit("agree_xlstm", arch="xlstm-1.3b",
+         measure="||pallas - xla|| / ||xla||", results=out)
+
+
+def phase_agree_encdec() -> None:
+    """seamless-m4t-medium at full width (d 1024, 16 heads of 64, vocab
+    256,206): kernel path against eager path (``agree_serving``) with
+    seeded standard-normal frames (4, 256, 1024) and a prompt of (4,
+    1024), 4 decode steps, in f32, bf16 and bf16 with an int8 self cache;
+    the states compared are the self cache (dequantised) and the cross
+    K/V.  Two cuts: 1 encoder and 1 decoder layer, every number bounded;
+    2 + 2 layers, f32 bounded, bf16 reported beside its drift (~100 %:
+    the encoder's nearly one-hot softmax over 256 frames)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import dequantize_kv
+    from repro_torch.models.model import build_model
+    full = get_config("seamless-m4t-medium")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, full.vocab, (4, 1028), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    frames = torch.randn((4, 256, full.d_model), generator=gen,
+                         device="cuda")
+    out = {}
+    for layers, bound_bf16 in ((1, True), (2, False)):
+        cfg = full.replace(n_layers=layers, enc_layers=layers)
+        model = build_model(cfg)
+        master = model.init(0, device="cuda")
+
+        def states(cache):
+            kv = cache["self"]
+            if cache["pos"] != 1028 or tuple(kv["k"].shape) != (
+                    layers, 4, 1088, 16, 64) or tuple(
+                    cache["cross_k"].shape) != (layers, 4, 256, 16, 64):
+                raise AssertionError(f"agree encdec: bad cache "
+                                     f"{kv['k'].shape} "
+                                     f"{cache['cross_k'].shape}")
+            return {"k_cache": dequantize_kv(kv["k"], kv.get("k_scale"),
+                                             torch.float32),
+                    "v_cache": dequantize_kv(kv["v"], kv.get("v_scale"),
+                                             torch.float32),
+                    "cross_k": cache["cross_k"],
+                    "cross_v": cache["cross_v"]}
+        out[f"{layers} + {layers} layers"] = agree_serving(
+            "seamless-m4t-medium", model, master,
+            {"tokens": tokens[:, :1024], "frames": frames},
+            tokens[:, 1024:], 1088,
+            (("float32", "float32"), ("bfloat16", "bfloat16"),
+             ("bfloat16", "int8")), states, bound_bf16)
+        del master
+        torch.cuda.empty_cache()
+    emit("agree_encdec", arch="seamless-m4t-medium",
+         frames="standard normal (4, 256, 1024)",
+         measure="||pallas - xla|| / ||xla||", results=out)
 
 
 # the near-tie margin of a routing comparison between the kernel path and
@@ -1471,20 +1664,36 @@ def phase_train(root: pathlib.Path) -> dict:
             "busy": train_busy_share()}
 
 
-# the newly trainable families at the depths one card's memory holds in
-# f32 with AdamW (16 bytes a parameter), full width: (arch, config
-# overrides, agreement batch (B, S), timed batch (B, S)).  olmoe-1b-7b:
-# 4 of 16 layers, ~1.9e9 parameters; llava-next-34b: 2 of 60 layers
-# (d 7168, 576 frontend tokens), ~2.0e9; zamba2-7b: one group of two
-# Mamba2 blocks, the shared block and a remainder block, as in
-# phase_agree_zamba.  An agreement batch holds one sequence (its CPU
-# step takes the time), the vlm's 576 frontend positions and 64 of text
+# the families trained beside smollm-135m, at full width and the depths
+# one card's memory holds in f32 with AdamW (16 bytes a parameter):
+# (arch, the agreement's config overrides, agreement batch (B, S), the
+# timed steps' overrides, timed batch (B, S)).  Timed: olmoe-1b-7b 4 of
+# 16 layers, ~1.9e9 parameters; llava-next-34b 2 of 60 layers (d 7168,
+# 576 frontend tokens), ~2.0e9; zamba2-7b one group of two Mamba2
+# blocks, the shared block and a remainder block, as in
+# phase_agree_zamba; xlstm-1.3b (1.21e9) and seamless-m4t-medium
+# (0.88e9) at full depth.  olmoe's agreement runs at 1 layer (its CPU
+# step took 38-48 s at 4, and the smoke is to end within 900 s); llava's
+# stays at 2 (at 1 its card and CPU steps differed past five times the
+# floor).  An agreement batch holds one
+# sequence (its CPU step takes the time), the vlm's 576 frontend
+# positions and 64 of text
 TRAIN_FAMILIES = (
-    ("olmoe-1b-7b", {"n_layers": 4}, (1, 256), (4, 1024)),
-    ("llava-next-34b", {"n_layers": 2}, (1, 640), (2, 2048)),
-    ("zamba2-7b", {"n_layers": 3, "attn_every": 2}, (1, 256), (4, 1024)),
+    ("olmoe-1b-7b", {"n_layers": 1}, (1, 256), {"n_layers": 4}, (4, 1024)),
+    ("llava-next-34b", {"n_layers": 2}, (1, 640), {"n_layers": 2},
+     (2, 2048)),
+    ("zamba2-7b", {"n_layers": 3, "attn_every": 2}, (1, 256),
+     {"n_layers": 3, "attn_every": 2}, (4, 1024)),
+    # the timed steps at full depth; xlstm at 256 positions, one full
+    # chunk.  The agreement at one mLSTM and one sLSTM block: over a
+    # group of 8 the gradient norm is ~8e5 and one rounding unit moves it
+    # more than 100 %, so no bound is left there
+    ("xlstm-1.3b", {"n_layers": 2, "slstm_every": 2}, (1, 256), {},
+     (4, 256)),
+    ("seamless-m4t-medium", {"n_layers": 2, "enc_layers": 2}, (1, 256), {},
+     (4, 1024)),
 )
-TRAIN_TIMED_STEPS = 4
+TRAIN_TIMED_STEPS = 2
 
 
 def train_steps_timed(cfg, batch: tuple) -> dict:
@@ -1538,20 +1747,25 @@ def phase_train_families(root: pathlib.Path) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     out = {}
-    for arch, cut, (ab, asq), timed in TRAIN_FAMILIES:
-        cfg = get_config(arch).replace(**cut)
-        agree = agree_train(cfg, ShapeConfig("agree_train", asq, ab,
-                                             "train"))
-        out[arch] = {"cut": cut, "agree": agree,
-                     "timed": train_steps_timed(cfg, timed)}
+    for arch, cut, (ab, asq), timed_cut, timed in TRAIN_FAMILIES:
+        agree = agree_train(get_config(arch).replace(**cut),
+                            ShapeConfig("agree_train", asq, ab, "train"))
+        out[arch] = {"cut": cut, "agree": agree, "timed_cut": timed_cut,
+                     "timed": train_steps_timed(
+                         get_config(arch).replace(**timed_cut), timed)}
         emit("train_family", **out[arch])
     return {"families": list(out)}
 
 
 def phase_serve(arch: str, gen_tokens: int) -> dict:
+    """The serve CLI at B 4, prompt 1024, with a bf16 and an int8 cache;
+    the ssm family's state is fixed-size and f32, so a cache dtype
+    reaches nothing there and it serves once."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     expect = {"prefills": 0, "decode_steps": 0}
-    for kv in ("bfloat16", "int8"):
+    ssm = get_config(arch).family == "ssm"
+    for kv in ("bfloat16",) if ssm else ("bfloat16", "int8"):
         t0 = time.time()
         rc = serve.main(["--arch", arch, "--batch", "4",
                          "--prompt-len", "1024", "--gen-tokens",
@@ -1661,6 +1875,27 @@ def launches_per_unit(cfg) -> tuple:
                  "flash_decode": 0, "ssm_scan": 0},
                 {"rmsnorm": 2 * n + 1, "flash_attention": 0,
                  "flash_decode": n, "ssm_scan": 0})
+    if cfg.family == "ssm":
+        # xlstm: every block (mLSTM and sLSTM) norms its input once, in
+        # prefill and in a decode step, and the stack once at the end;
+        # no attention and no SSD scan (the mLSTM's chunked form is eager)
+        n = cfg.n_layers
+        return ({"rmsnorm": n + 1, "flash_attention": 0, "flash_decode": 0,
+                 "ssm_scan": 0},
+                {"rmsnorm": n + 1, "flash_attention": 0, "flash_decode": 0,
+                 "ssm_scan": 0})
+    if cfg.family == "encdec":
+        # each encoder layer norms ln1 and ln2 and the encoder once at the
+        # end; in prefill each decoder layer norms ln1 twice (the cached
+        # K/V, then inside the block), lnx and ln2 once, the stack once;
+        # its causal self-attention is the kernel, the encoder's
+        # (non-causal) and the cross-attention are eager.  A decode step
+        # norms ln1, lnx and ln2 once a layer and the stack once
+        n, e = cfg.n_layers, cfg.enc_layers
+        return ({"rmsnorm": 4 * n + 2 * e + 2, "flash_attention": n,
+                 "flash_decode": 0, "ssm_scan": 0},
+                {"rmsnorm": 3 * n + 1, "flash_attention": 0,
+                 "flash_decode": n, "ssm_scan": 0})
     # hybrid: every Mamba2 block norms its input and its gated output and
     # scans once in prefill; each of the g shared-block invocations norms
     # ln1 twice (cached K/V, then inside the block) and ln2 once in
@@ -1715,6 +1950,17 @@ def main_paths() -> list:
         mean_rate=4.0, seed=2026, tenants=(
             traffic.Tenant("chat", 0.5, (128, 1024), (8, 24)),
             traffic.Tenant("doc", 0.5, (512, 1024), (8, 16))))
+    # the two last families: two waves of four each
+    xlstm_trace = traffic.TraceSpec(
+        name="poisson_smoke_xlstm", pattern="poisson", n_requests=8,
+        mean_rate=4.0, seed=2027, tenants=(
+            traffic.Tenant("chat", 0.5, (128, 1024), (8, 24)),
+            traffic.Tenant("doc", 0.5, (512, 1024), (8, 16))))
+    seamless_trace = traffic.TraceSpec(
+        name="poisson_smoke_encdec", pattern="poisson", n_requests=8,
+        mean_rate=4.0, seed=2028, tenants=(
+            traffic.Tenant("chat", 0.5, (128, 1024), (8, 24)),
+            traffic.Tenant("doc", 0.5, (512, 1024), (8, 16))))
     return [
         ("smollm-135m", lambda: [phase_serve("smollm-135m", 64),
                                  phase_scheduler("smollm-135m", smollm_trace,
@@ -1726,6 +1972,14 @@ def main_paths() -> list:
                                  phase_scheduler("olmoe-1b-7b", olmoe_trace,
                                                  1088),
                                  phase_serve_profile("olmoe-1b-7b")]),
+        ("xlstm-1.3b", lambda: [phase_serve("xlstm-1.3b", 32),
+                                phase_scheduler("xlstm-1.3b", xlstm_trace,
+                                                1088),
+                                phase_serve_profile("xlstm-1.3b")]),
+        ("seamless-m4t-medium", lambda: [
+            phase_serve("seamless-m4t-medium", 32),
+            phase_scheduler("seamless-m4t-medium", seamless_trace, 1088),
+            phase_serve_profile("seamless-m4t-medium")]),
     ]
 
 
@@ -1994,12 +2248,16 @@ def phase_tune_cell(path: str, arch: str, shape: str, root: pathlib.Path,
 STEP_CELL = ("smollm-135m", "decode_card")
 STEP_CAMPAIGN = "smollm-135m:prefill_card,smollm-135m:train_card"
 MOE_STEP_CELL = ("olmoe-1b-7b", "prefill_card")
+# the reference's own 500k-position decode cell: xlstm's state is fixed
+# (the mLSTM's 176 MB a stream), so it fits the card as it stands
+XLSTM_STEP_CELL = ("xlstm-1.3b", "long_500k")
 
 
 def phase_tune_steps(root: pathlib.Path) -> dict:
-    """The measured step cells at full smollm-135m width and depth, and
-    olmoe-1b-7b's prefill of one 32,768-token prompt at full width and
-    depth (single-cell mode)."""
+    """The measured step cells at full smollm-135m width and depth,
+    olmoe-1b-7b's prefill of one 32,768-token prompt and xlstm-1.3b's
+    decode of one stream at position 524,288 (``long_500k``), each at
+    full width and depth (single-cell mode)."""
     cell = phase_tune_cell("tune_cell", *STEP_CELL, root)
     torch.cuda.empty_cache()
     camp = phase_tune("tune_step_campaign", STEP_CAMPAIGN, root,
@@ -2007,7 +2265,10 @@ def phase_tune_steps(root: pathlib.Path) -> dict:
     torch.cuda.empty_cache()
     moe = phase_tune_cell("tune_cell_moe", *MOE_STEP_CELL, root)
     torch.cuda.empty_cache()
-    return {"single_cell": cell, "campaign": camp, "moe_single_cell": moe}
+    xl = phase_tune_cell("tune_cell_xlstm", *XLSTM_STEP_CELL, root)
+    torch.cuda.empty_cache()
+    return {"single_cell": cell, "campaign": camp, "moe_single_cell": moe,
+            "xlstm_single_cell": xl}
 
 
 def main(argv=None) -> int:
@@ -2033,6 +2294,8 @@ def main(argv=None) -> int:
     phase_agree()
     phase_agree_zamba()
     phase_agree_moe()
+    phase_agree_xlstm()
+    phase_agree_encdec()
     phase_agree_train()
     # the main paths: every launch counter is set to 0 just before each
     # path and read right after it

@@ -38,7 +38,11 @@ def profile(arch: str, kv_dtype: str = "bfloat16", steps: int = 16) -> dict:
     with the peak device memory while serving (``peak_bytes``: the bf16
     parameters, the cache and the activations; the f32 master tree is
     dropped before) and the prefills and decode steps it ran (warm-up
-    and traces included: what the kernels' launch counters see)."""
+    and traces included: what the kernels' launch counters see).  An
+    encoder-decoder gets seeded standard-normal frames (B, 1024 /
+    enc_seq_ratio, d).  The ssm family's prefill is timed, not traced:
+    its eager sLSTM loop launches ~2e5 kernels, whose trace would take
+    longer to summarise than the prefill takes to run."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from repro_torch.configs import get_config
@@ -46,6 +50,7 @@ def profile(arch: str, kv_dtype: str = "bfloat16", steps: int = 16) -> dict:
     from repro_torch.models.model import build_model
 
     cfg = get_config(arch)
+    trace_prefill = cfg.family != "ssm"
     rt = default_config(compute_dtype="bfloat16",
                         kv_cache_dtype=kv_dtype, attn_impl="pallas")
     model = build_model(cfg)
@@ -55,11 +60,15 @@ def profile(arch: str, kv_dtype: str = "bfloat16", steps: int = 16) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
-                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (4, 1024 // cfg.enc_seq_ratio, cfg.d_model), generator=gen,
+            device="cuda").to(torch.bfloat16)
 
     def prefill():
-        return model.prefill_fn(params, {"tokens": tokens}, rt, max_seq=1088)
+        return model.prefill_fn(params, batch, rt, max_seq=1088)
 
     def decode(cache, tok, n):
         for _ in range(n):
@@ -133,12 +142,13 @@ def profile(arch: str, kv_dtype: str = "bfloat16", steps: int = 16) -> dict:
             "decode_ms_per_step": decode_ms / steps,
             "decode_tok_per_s": 4 * steps / (decode_ms / 1e3),
             "decode_steps_timed": steps,
-            "prefill_trace": traced(prefill),
+            "prefill_trace": traced(prefill) if trace_prefill else None,
             "decode_trace": traced(lambda: decode(cache, tok, steps)),
         }
     del params, cache
     report["peak_bytes"] = torch.cuda.max_memory_allocated()
-    report["prefills"], report["decode_steps"] = 3, 2 + 2 * steps
+    report["prefills"] = 3 if trace_prefill else 2
+    report["decode_steps"] = 2 + 2 * steps
     torch.cuda.empty_cache()
     return report
 

@@ -16,10 +16,13 @@ import torch
 
 
 def from_jax_params(tree):
-    """Nested dict of numpy arrays -> nested dict of CPU tensors of the
-    same dtypes (move them with ``.to(device)`` where needed)."""
+    """Nested dicts and tuples of numpy arrays -> the same tree of CPU
+    tensors of the same dtypes (move them with ``.to(device)`` where
+    needed).  A tuple appears in a cache (xlstm's sLSTM state)."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_jax_params(v) for v in tree)
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":      # ml_dtypes: no torch counterpart
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)

@@ -48,9 +48,8 @@ checkpoints, signatures and reports are byte-identical to the
 reference's.  It differs in two places.  Its checkpoints default to a
 directory of its own (``results/torch/campaign/``).  And the default
 evaluator times every cell on one device (the card unless the CPU is
-asked for), and refuses a step cell whose model path is not ported
-with ``NotImplementedError`` before any trial runs.  The fabric (slice
-6 of ROADMAP.md queue A) is not ported.
+asked for).  The fabric (slice 6 of ROADMAP.md queue A) is not
+ported.
 """
 from __future__ import annotations
 
@@ -350,9 +349,6 @@ class Campaign:
             from repro_torch.core.kernel_cell import DispatchEvaluator
             evaluator = DispatchEvaluator()
         self.evaluator = evaluator
-        self._accepts = getattr(evaluator, "accepts", None)
-        for spec in self.cells:
-            self._accept(spec)
         self.executor = executor
         self.max_workers = max_workers
         self.baseline_factory = baseline_factory or (
@@ -425,13 +421,6 @@ class Campaign:
         self.last_stats: Dict = {}
 
     # --------------------------------------------------------- per cell
-    def _accept(self, spec: CellSpec) -> None:
-        """Refuse, before any trial runs, a cell the evaluator cannot
-        time (its ``accepts`` hook raises): such a cell must never
-        become a crashed trial in a history."""
-        if self._accepts is not None:
-            self._accepts(spec)
-
     def _make_cursor(self, spec: CellSpec, runner: TrialRunner,
                      baseline: TunableConfig) -> SearchCursor:
         options = dict(self.strategy_options)
@@ -765,7 +754,6 @@ class Campaign:
     def _activate(self, spec: CellSpec) -> _CellRun:
         """Build one cell's run state (cursor, checkpoint, warm-start)
         the moment the queue hands the cell out."""
-        self._accept(spec)               # intake cells are checked here
         if self.quarantine is not None:
             # we own this cell now (queue hand-out / fabric lease), so
             # any intent on it without a completion is an evaluation

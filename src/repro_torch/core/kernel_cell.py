@@ -370,14 +370,6 @@ class KernelBenchEvaluator:
                                compile_s=round(time.time() - t0, 2))
 
 
-def require_step_cell(wl: Workload) -> None:
-    """Raise ``NotImplementedError`` for a step cell whose model path is
-    not ported (the ssm and encdec families, for every kind of step),
-    naming its slice of ROADMAP.md queue A."""
-    from repro_torch.models.model import require_family
-    require_family(wl.cfg)
-
-
 # a step sample's least length (s): shorter steps are timed in windows
 # of back-to-back calls (WallClockEvaluator).  On the H100 a host-bound
 # step's cost spreads less over longer samples (PERF.md, run v1:
@@ -407,9 +399,7 @@ class DispatchEvaluator:
     to the (timing-cached) traffic-replay evaluator
     (serving/evaluator.py), step workloads to :func:`step_evaluator`
     unless ``step`` is given, all on ``device``; the timing caches'
-    keys name the device.
-    :meth:`accepts` refuses, before any trial runs, a step cell whose
-    model path is not ported.  ``cache_dir`` holds the timing caches
+    keys name the device.  ``cache_dir`` holds the timing caches
     (default: the port's ``results/torch/trials/timings``)."""
 
     def __init__(self, step: Optional[Callable] = None,
@@ -424,14 +414,6 @@ class DispatchEvaluator:
             KernelBenchEvaluator(device=device), cache=TimingCache(cache_dir))
         self.serve = serve or make_serve_evaluator(
             slo_ttft=slo_ttft, cache=TimingCache(cache_dir), device=device)
-
-    def accepts(self, spec: CellSpec) -> None:
-        """Raise ``NotImplementedError`` for a cell this evaluator has
-        no path for (a step cell whose model path is not ported)."""
-        wl = spec.workload()
-        if not is_kernel_workload(wl) \
-                and not str(wl.arch).startswith("serve-"):
-            require_step_cell(wl)
 
     def __call__(self, wl: Workload, rt: TunableConfig) -> TrialResult:
         if is_kernel_workload(wl):

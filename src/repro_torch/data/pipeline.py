@@ -40,9 +40,10 @@ def _tokens_for(seed: int, step: int, lo: int, hi: int, seq: int,
 
 @dataclasses.dataclass
 class SyntheticLM:
-    """batch_at(step) -> {tokens, labels[, frontend_embeds]} matching
-    ``input_specs``, on ``device``; a vlm's frontend embeddings are
-    the reference's, 0.02 times a normal draw seeded by the step."""
+    """batch_at(step) -> {tokens, labels[, frontend_embeds | frames]}
+    matching ``input_specs``, on ``device``; a vlm's frontend embeddings
+    and an encdec's frames are the reference's, 0.02 times a normal draw
+    seeded by the step."""
     cfg: ArchConfig
     shape: ShapeConfig
     rt: TunableConfig
@@ -60,12 +61,16 @@ class SyntheticLM:
         out = {"tokens": toks[:, :-1].contiguous().to(self.device)}
         if "labels" in self.specs:
             out["labels"] = toks[:, 1:].contiguous().to(self.device)
-        if "frontend_embeds" in self.specs:   # vlm stub: patch embeddings
-            s = self.specs["frontend_embeds"]
-            rng = np.random.RandomState(
-                (self.seed * 31 + step * 7 + 13) % (2**31 - 1))
-            emb = torch.from_numpy(rng.standard_normal(s.shape)).to(s.dtype)
-            out["frontend_embeds"] = (emb * 0.02).to(self.device)
+        # the stubbed frontends' outputs: vlm patch embeddings, encdec
+        # audio frames
+        for extra in ("frontend_embeds", "frames"):
+            if extra in self.specs:
+                s = self.specs[extra]
+                rng = np.random.RandomState(
+                    (self.seed * 31 + step * 7 + 13) % (2**31 - 1))
+                emb = torch.from_numpy(rng.standard_normal(s.shape)).to(
+                    s.dtype)
+                out[extra] = (emb * 0.02).to(self.device)
         return out
 
 

@@ -130,13 +130,12 @@ def tune_cell(arch: str, shape: str, multi_pod: bool = False,
     given), one trial at a time.
     The report goes to ``out_dir`` (default ``results/torch/tuning``)."""
     from repro_torch.core.executor import SweepExecutor
-    from repro_torch.core.kernel_cell import require_step_cell, step_evaluator
+    from repro_torch.core.kernel_cell import step_evaluator
     from repro_torch.core.strategy import drive, make_cursor
     from repro_torch.core.trial import TrialRunner, Workload
     from repro_torch.models.model import resolve_device
     resolve_device(device)
     wl = Workload(arch, shape, multi_pod)
-    require_step_cell(wl)
     evaluator = evaluator or step_evaluator(device, timing_dir)
     baseline = _baseline(baseline_overrides)
     with SweepExecutor(evaluator, max_workers=1) as executor:

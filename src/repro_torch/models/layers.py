@@ -91,8 +91,9 @@ def stacked(n: int, spec_tree):
 
 
 # parameters the reference reads in their master dtype, never cast to the
-# compute dtype: Mamba2's dt bias and log decay (mamba2._gates)
-UNCAST = frozenset({"dt_bias", "A_log"})
+# compute dtype: Mamba2's dt bias and log decay (mamba2._gates) and the
+# sLSTM's diagonal recurrent weights (xlstm.slstm_block reads them in f32)
+UNCAST = frozenset({"dt_bias", "A_log", "ri", "rf", "rz", "ro"})
 
 
 def cast_params(params, spec_tree, rt: TunableConfig):
@@ -132,6 +133,17 @@ def rmsnorm(x, scale, rt: TunableConfig, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    """The reference's layernorm (f32 math, biased variance).  No model
+    calls it: every family, the encoder-decoder too, norms with
+    ``rmsnorm``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------- rope
@@ -201,21 +213,22 @@ def full_attention(q, k, v, *, causal: bool, rt: TunableConfig, rules=None,
 
 def attention_block(p, x, *, cfg, rt: TunableConfig, rules, positions,
                     causal=True, kv_x=None, kv_positions=None):
-    """Full (prefill) self-attention sub-block."""
+    """Full (train/prefill) attention sub-block.  With ``kv_x`` it is
+    cross-attention: K and V come from ``kv_x``, there is no RoPE and no
+    causal mask, so it takes the eager path of ``full_attention``."""
     require_no_rules(rules)
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP.md queue A, "
-            "slice 5b: models/encdec.py)")
+    src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"], rt))
-    k = torch.einsum("bsd,dhk->bshk", x, cast(p["wk"], rt))
-    v = torch.einsum("bsd,dhk->bshk", x, cast(p["wv"], rt))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions if kv_positions is None else kv_positions,
-             cfg.rope_theta)
+    k = torch.einsum("bsd,dhk->bshk", src, cast(p["wk"], rt))
+    v = torch.einsum("bsd,dhk->bshk", src, cast(p["wv"], rt))
+    if kv_x is None:      # self-attention gets RoPE
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_positions is None else kv_positions,
+                 cfg.rope_theta)
     k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
-    o = full_attention(q, k, v, causal=causal, rt=rt, rules=rules)
+    o = full_attention(q, k, v, causal=causal and kv_x is None, rt=rt,
+                       rules=rules)
     return torch.einsum("bshk,hkd->bsd", o, cast(p["wo"], rt))
 
 

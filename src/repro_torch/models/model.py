@@ -2,9 +2,9 @@
 
 ``build_model(cfg)`` returns a :class:`Model` whose functions close over
 the architecture config; ``input_specs`` gives the shapes of every
-workload cell's inputs.  The ``dense``, ``moe``, ``vlm`` and ``hybrid``
-families are ported; ``ssm`` and ``encdec`` raise, naming their slice
-(``LATER_FAMILIES``).
+workload cell's inputs.  Every family of the reference is ported:
+``dense``, ``moe`` and ``vlm`` (the transformer backbone), ``hybrid``
+(zamba), ``ssm`` (xlstm) and ``encdec``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.params import TunableConfig
-from repro_torch.models import layers as L, transformer, zamba
+from repro_torch.models import (encdec, layers as L, transformer, xlstm,
+                                zamba)
 from repro_torch.runtime.remat import torch_dtype
 
 _FAMILY_MODULES = {
@@ -23,21 +24,9 @@ _FAMILY_MODULES = {
     "vlm": transformer,
     "moe": transformer,
     "hybrid": zamba,
+    "ssm": xlstm,
+    "encdec": encdec,
 }
-# families still to port, and where (xlstm.py; encdec.py with layernorm
-# and cross-attention)
-LATER_FAMILIES = {"ssm": "ROADMAP.md queue A, slice 5b: models/xlstm.py",
-                  "encdec": "ROADMAP.md queue A, slice 5b: models/encdec.py"}
-
-
-def require_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot build,
-    naming the slice that brings it."""
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"({LATER_FAMILIES.get(cfg.family, 'ROADMAP.md queue A')}); "
-            f"only {sorted(_FAMILY_MODULES)} can be built")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -104,7 +93,6 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    require_family(cfg)
     return Model(cfg, _FAMILY_MODULES[cfg.family])
 
 
@@ -113,14 +101,15 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
                 rt: TunableConfig) -> Dict[str, L.ShapeDtype]:
     """Shape/dtype stand-ins for one workload cell (no allocation).
 
-    train  -> {tokens, labels [, frontend_embeds]}
-    prefill-> {tokens [, frontend_embeds]}
+    train  -> {tokens, labels [, frontend_embeds | frames]}
+    prefill-> {tokens [, frontend_embeds | frames]}
     decode -> {tokens (B,1)}   (cache comes from Model.cache_shapes)
 
     vlm: ``frontend_embeds`` (B, F, d) in the compute dtype take the
     first F of the S positions; tokens and labels cover the other S - F.
+    encdec: ``frames`` (B, S // enc_seq_ratio, d) in the compute dtype,
+    the stubbed audio frontend's output; tokens and labels cover S.
     """
-    require_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     tok = lambda s: L.ShapeDtype((B, s), torch.int32)
     if shape.kind == "decode":
@@ -130,6 +119,9 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
         F = cfg.frontend_tokens
         out["frontend_embeds"] = L.ShapeDtype((B, F, cfg.d_model), L.dt(rt))
         S = S - F
+    elif cfg.family == "encdec":
+        out["frames"] = L.ShapeDtype((B, S // cfg.enc_seq_ratio,
+                                      cfg.d_model), L.dt(rt))
     out["tokens"] = tok(S)
     if shape.kind == "train":
         out["labels"] = tok(S)

@@ -46,8 +46,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.params import TunableConfig
 from repro_torch.models import layers as L
-from repro_torch.models.model import (Model, build_model, input_specs,
-                                     require_family)
+from repro_torch.models.model import Model, build_model, input_specs
 from repro_torch.optim.optimizers import Optimizer, make_optimizer
 from repro_torch.runtime.loops import tree_leaves, tree_map, tree_unflatten
 from repro_torch.runtime.remat import torch_dtype
@@ -73,13 +72,6 @@ def require_one_device(mesh) -> None:
         raise NotImplementedError(
             f"a mesh of {n} devices ({dict(mesh)}) is not ported yet "
             f"({MULTI_DEVICE}); the port's steps run on one device")
-
-
-def require_trainable(cfg: ArchConfig) -> None:
-    """Raise for a family whose training path is not ported: every family
-    the port builds has its ``loss_fn`` (dense, moe, vlm, hybrid), so
-    this is ``require_family``, which names the slice of the others."""
-    require_family(cfg)
 
 
 def cast_params_for_compute(params, rt: TunableConfig):
@@ -161,7 +153,6 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, rt: TunableConfig,
                      mesh=None, optimizer: Optional[Optimizer] = None
                      ) -> StepBundle:
     require_one_device(mesh)
-    require_trainable(cfg)
     model = build_model(cfg)
     optimizer = optimizer or make_optimizer(cfg.optimizer)
     notes = _notes(cfg, rt, attn_impl=rt.attn_impl)

@@ -29,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.params import TunableConfig
 from repro_torch.models.model import Model, build_model, resolve_device
 from repro_torch.runtime.loops import tree_map
+from repro_torch.runtime.remat import torch_dtype
 
 
 @dataclasses.dataclass
@@ -158,6 +159,14 @@ class BatchScheduler:
         t0 = time.time()
         tokens = self._pad_prompts(wave)
         batch = {"tokens": tokens}
+        if self.cfg.family == "encdec":
+            # the reference's frames: zeros, so the encoder's output and
+            # every cross-attention are exactly 0 on this path
+            S = tokens.shape[1]
+            batch["frames"] = torch.zeros(
+                (tokens.shape[0], max(1, S // self.cfg.enc_seq_ratio),
+                 self.cfg.d_model), dtype=torch_dtype(self.rt.compute_dtype),
+                device=self.device)
         logits, cache = self._prefill(self.params, batch)
         # filler lanes (pad_wave) never count toward metrics
         self.metrics.prefill_tokens += int(len(wave) * tokens.shape[1])

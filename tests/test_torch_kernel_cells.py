@@ -153,7 +153,6 @@ def test_dispatch_routes_each_kind():
     for spec in campaign.parse_cells(
             "kernel:rmsnorm:tiny,serve:smollm-135m:poisson_tiny,"
             "smollm-135m:train_4k"):
-        disp.accepts(spec)
         disp(spec.workload(), params.default_config())
     assert [k for k, _ in seen] == ["kernel", "serve", "step"]
 
@@ -174,47 +173,56 @@ def test_dispatch_stack_leaves_step_campaigns_unchanged(tmp_path):
         == [campaign.tuning_fingerprint(r) for r in disp.values()]
 
 
-# a step cell whose family the port has no model for yet
-UNPORTED_STEP = "xlstm-1.3b:train_4k"
-FAMILIES = "slice 5b"
+# a step cell of the ssm family (xlstm): every family of the reference
+# is ported, so its cells run like any other
+XLSTM_STEP = "xlstm-1.3b:train_4k"
 
 
-def test_step_cells_refused_before_any_trial(tmp_path):
-    step = campaign.parse_cells(UNPORTED_STEP)
-    with pytest.raises(NotImplementedError, match=FAMILIES):
-        kc.DispatchEvaluator(device="cpu").accepts(step[0])
+def test_step_cells_refused_before_any_trial(tmp_path, monkeypatch):
+    """Nothing refuses a step cell of a ported family any more: the cell
+    runs a measured trial (the reduced config at a CPU-sized train
+    shape), and a campaign mixing it with a kernel cell walks both."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    monkeypatch.setattr(trial, "get_config", get_reduced)
+    monkeypatch.setattr(trial, "get_shape",
+                        lambda s: ShapeConfig(s, 16, 2, "train"))
+    monkeypatch.setattr(kc, "STEP_MIN_SAMPLE_S", 0.0)
+    step = campaign.parse_cells(XLSTM_STEP)
     res = kc.DispatchEvaluator(device="cpu", cache_dir=tmp_path / "t")(
         step[0].workload(), params.default_config())
-    assert res.crashed and FAMILIES in res.error
-    mixed = campaign.parse_cells(f"kernel:rmsnorm:tiny,{UNPORTED_STEP}")
-    with pytest.raises(NotImplementedError, match=FAMILIES):
-        campaign.Campaign(mixed, evaluator=kc.DispatchEvaluator(
-            device="cpu"), checkpoint_dir=tmp_path)
-    with pytest.raises(NotImplementedError, match=FAMILIES):
-        tune.tune_campaign(mixed, checkpoint_dir=tmp_path, device="cpu")
-    assert not (tmp_path / "history.jsonl").exists()
-    assert not list(tmp_path.glob("*.json"))
+    assert not res.crashed, res.error
+    assert 0 < res.cost_s < float("inf")
+    stub = lambda wl, rt: trial.TrialResult(cost_s=1.0)
+    mixed = campaign.parse_cells(f"kernel:rmsnorm:tiny,{XLSTM_STEP}")
+    reports = campaign.Campaign(mixed, evaluator=kc.DispatchEvaluator(
+        step=stub, kernel=stub, device="cpu"),
+        checkpoint_dir=tmp_path).run()
+    assert set(reports) == {"kernel-rmsnorm__tiny__pod",
+                            "xlstm-1.3b__train_4k__pod"}
+    assert (tmp_path / "history.jsonl").exists()
 
 
 def test_step_cell_through_intake_refused(tmp_path):
-    """A step cell submitted while a kernel campaign runs is refused when
-    it is handed out, never run as a crashed trial."""
+    """A step cell submitted while a kernel campaign runs is handed out
+    and walked like the cells the campaign started with."""
     from repro_torch.core import schedule
 
     def kernel(wl, rt):
-        schedule.submit_cells(tmp_path, campaign.parse_cells(UNPORTED_STEP))
+        schedule.submit_cells(tmp_path, campaign.parse_cells(XLSTM_STEP))
         return trial.TrialResult(cost_s=1.0)
 
     camp = campaign.Campaign(
         campaign.parse_cells("kernel:rmsnorm:tiny"),
-        evaluator=kc.DispatchEvaluator(kernel=kernel, device="cpu"),
+        evaluator=kc.DispatchEvaluator(
+            kernel=kernel, step=lambda wl, rt: trial.TrialResult(cost_s=1.0),
+            device="cpu"),
         checkpoint_dir=tmp_path, intake=True)
-    with pytest.raises(NotImplementedError, match=FAMILIES):
-        camp.run()
+    camp.run()
     rows = [json.loads(x) for x in
             (tmp_path / "history.jsonl").read_text().splitlines()]
-    assert rows and {r["cell"] for r in rows} \
-        == {"kernel-rmsnorm__tiny__pod"}
+    assert {r["cell"] for r in rows} \
+        == {"kernel-rmsnorm__tiny__pod", "xlstm-1.3b__train_4k__pod"}
 
 
 def _step(arch, shape, mesh=None):
@@ -227,7 +235,6 @@ def _step(arch, shape, mesh=None):
 @pytest.mark.parametrize("build, slice_", [
     (lambda: _step("smollm-135m", "train_4k", {"data": 16, "model": 16}),
      "slice 7"),
-    (lambda: _step("xlstm-1.3b", "train_4k"), "slice 5b"),
     (lambda: trial.RooflineEvaluator(), "slice 8"),
     (lambda: tune.main(["--device", "cpu", "--cells",
                         "kernel:rmsnorm:tiny", "--workers", "2"]),

@@ -44,8 +44,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.runtime.loops import tree_map
-from repro_torch.runtime.stepfn import (MOE_ONE_DEVICE_NO_OPS, build_step,
-                                        require_trainable)
+from repro_torch.runtime.stepfn import MOE_ONE_DEVICE_NO_OPS, build_step
 
 from _torch_parity import (both, fro_close, fro_close_floor, j2n,
                            leaf_pairs, port_grads, port_train_step,
@@ -350,7 +349,6 @@ def test_full_configs_build_and_train(arch):
         spec, is_leaf=lambda s: isinstance(s, L.ShapeDtype)))
     assert n == sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
         jbuild(jget_config(arch)).param_shapes()))
-    require_trainable(cfg)
     rt = default_config()
     notes = build_step(cfg, ShapeConfig("t", 64, 2, "train"), rt).notes
     assert notes["moe_one_device_no_ops"] == {

@@ -97,27 +97,48 @@ def test_no_card_raises_without_device_cpu(tmp_results, monkeypatch):
     assert not (tmp_results / "camp").exists()
 
 
-def test_single_cell_mode_raises_naming_slice_4(tmp_results):
-    """Single-cell mode runs (tests/test_torch_step_cells.py); a cell
-    whose model path is not ported raises naming its slice, before any
-    trial."""
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tune.main(["--device", "cpu", "--arch", "xlstm-1.3b", "--shape",
-                   "train_4k"])
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tune.tune_cell("seamless-m4t-medium", "train_4k", device="cpu")
-    assert not (tmp_results / "tuning").exists()
+@pytest.fixture
+def reduced_steps(tmp_results, monkeypatch):
+    """Step cells run the arch's reduced config at a CPU-sized stand-in
+    of their shape's kind, one step a sample."""
+    from repro_torch.configs import SHAPES, get_reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import kernel_cell as kc, trial
+    monkeypatch.setattr(trial, "get_config", get_reduced)
+    monkeypatch.setattr(trial, "get_shape", lambda s: ShapeConfig(
+        s, 32, 1 if SHAPES[s].kind == "decode" else 2, SHAPES[s].kind))
+    monkeypatch.setattr(kc, "STEP_MIN_SAMPLE_S", 0.0)
+    return tmp_results
 
 
-def test_step_cells_raise_naming_slice_4(tmp_results):
-    """Step cells run in campaigns (tests/test_torch_step_cells.py); one
-    whose model path is not ported raises naming its slice, before any
-    trial."""
-    ckpt = tmp_results / "camp"
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tune.main(["--device", "cpu", "--cells", "xlstm-1.3b:train_4k",
-                   "--checkpoint-dir", str(ckpt)])
-    assert not list(ckpt.glob("*.json"))
+def test_single_cell_mode_raises_naming_slice_4(reduced_steps):
+    """Single-cell mode walks the ssm and encdec families' cells as any
+    other's: xlstm-1.3b's own 500k-position decode cell and
+    seamless-m4t-medium's decode cell, each on its reduced stand-in."""
+    assert tune.main(["--device", "cpu", "--arch", "xlstm-1.3b", "--shape",
+                      "long_500k"]) == 0
+    rep = tune.tune_cell("seamless-m4t-medium", "decode_32k", device="cpu")
+    for key in ("xlstm-1.3b__long_500k__pod",
+                "seamless-m4t-medium__decode_32k__pod"):
+        saved = json.loads((reduced_steps / "tuning" / f"{key}.json")
+                           .read_text())
+        assert 1 <= saved["n_trials"] <= 10
+        assert not any(e["result"]["crashed"] for e in saved["log"])
+    assert rep.n_trials >= 1
+
+
+def test_step_cells_raise_naming_slice_4(reduced_steps):
+    """A campaign walks the ssm and encdec families' step cells as any
+    other's."""
+    ckpt = reduced_steps / "camp"
+    assert tune.main(["--device", "cpu", "--cells",
+                      "xlstm-1.3b:decode_32k,seamless-m4t-medium:decode_32k",
+                      "--checkpoint-dir", str(ckpt)]) == 0
+    for key in ("xlstm-1.3b__decode_32k__pod",
+                "seamless-m4t-medium__decode_32k__pod"):
+        rep = json.loads((ckpt / "reports" / f"{key}.json").read_text())
+        assert 1 <= rep["n_trials"] <= 10
+        assert not any(e["result"]["crashed"] for e in rep["log"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -33,7 +33,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import transformer
 from repro_torch.models.model import build_model
 from repro_torch.runtime.loops import tree_map
-from repro_torch.runtime.stepfn import require_trainable
+from repro_torch.runtime.stepfn import build_train_step
 
 from _torch_parity import (fro_close, fro_close_floor, j2n, leaf_pairs,
                            port_grads, port_train_step, rel_close,
@@ -210,7 +210,8 @@ def test_full_config_builds_and_trains():
         shapes, is_leaf=lambda s: isinstance(s, L.ShapeDtype)))
     assert n == sum(int(np.prod(s.shape)) for s in jax.tree.leaves(
         jbuild(jget_config(ARCH)).param_shapes()))
-    require_trainable(cfg)
+    assert build_train_step(cfg, ShapeConfig("t", 2048, 4, "train"),
+                            default_config()).kind == "train"
     specs = tmodel.input_specs(cfg, ShapeConfig("t", 2048, 4, "train"),
                                default_config(compute_dtype="bfloat16"))
     assert tuple(specs["frontend_embeds"].shape) == (4, 576, 7168)
