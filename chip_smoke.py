@@ -15,7 +15,8 @@ wrappers' launch counters that each path went through its kernels.
 
 Phases, one JSON line each: env, build, kernels, kernel_cells (each
 kernel at the tuner's kernel-cell shapes and tiles, against its plain
-version, every call after a NaN fill of the SMs' shared memory), agree
+version, the scan's computed in f64, every call after a NaN fill of the
+SMs' shared memory), agree
 (kernel path vs eager path of the whole model, per model; for olmoe
 ``agree_moe`` also counts the routing decisions that differ and holds
 the MoE FFN alone against its expert-by-expert version; ``agree_xlstm``
@@ -30,6 +31,11 @@ re-rank of the top 2, telemetry on), each a path of its own for the
 counters: ``tune`` walks the serve cell ``serve:smollm-135m:poisson_card``
 (smollm-135m at full width and depth) and ``tune_kernels`` the four
 kernel cells ``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``;
+then ``fabric``, the fleet through its entry points (``tune --workers 2
+--device cuda`` as a subprocess over those four cells and
+``serve:smollm-135m:poisson_tiny``, then a worker SIGKILLed mid-cell and
+another that steals its lease; its workers' launches are counted in
+their own processes, so ``launches_by_path["fabric"]`` is null);
 then three more paths: ``train`` (``repro_torch.launch.train`` at full
 width and depth, a stop and a resume; it launches no kernel),
 ``train_families`` (for olmoe-1b-7b, llava-next-34b, zamba2-7b,
@@ -81,7 +87,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2020,18 +2028,163 @@ def poison_shared_memory() -> None:
         torch.cuda.current_stream().cuda_stream), "smem_poison")
 
 
+def plain_output(name: str, fn, args) -> tuple:
+    """What a kernel cell's output is held to: its spec's ``plain``
+    (core/kernel_cell.KERNELS; ``ssm_scan``'s is its plain version in
+    f64), else the wrapper on CPU copies of its inputs (the kernel's
+    plain version)."""
+    from repro_torch.core.kernel_cell import KERNELS
+    plain = KERNELS[name].plain
+    if plain is not None:
+        return plain(args)
+    out = fn(*(a.cpu() for a in args))
+    return out if isinstance(out, tuple) else (out,)
+
+
+def assert_sync_zero(where: str) -> None:
+    """Every ``ssm_scan`` sync buffer (``ssm_scan/ops._sync``, one per
+    device and stream) is back at all zeros, as the wrapper's contract
+    says each call leaves it (``csrc/ssm_scan.cu``)."""
+    from repro_torch.kernels.ssm_scan import ops
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for (device, stream), buf in ops._sync.items():
+        nonzero = int(torch.count_nonzero(buf))
+        if nonzero:
+            first = int(torch.nonzero(buf)[0, 0])
+            raise AssertionError(
+                f"{where}: the ssm_scan sync buffer of stream {stream} on "
+                f"{device} holds {nonzero} non-zero ints after a call "
+                f"(first at {first}: {int(buf[first])})")
+
+
+def first_diff(a: torch.Tensor, b: torch.Tensor):
+    """The index of the first element where ``a`` and ``b`` differ (as a
+    list), or None when they are equal bit for bit."""
+    diff = torch.nonzero(a.cpu() != b.cpu())
+    return None if len(diff) == 0 else [int(i) for i in diff[0]]
+
+
+def scan_place(index) -> dict:
+    """An index of the scan's Y (b, row, head, p) as (chunk, row within
+    the chunk, head, p), at the kernel's chunk of 64."""
+    from repro_torch.kernels.ssm_scan.ops import KERNEL_CHUNK
+    if index is None:
+        return None
+    b, row, head, p = index
+    return {"b": b, "chunk": row // KERNEL_CHUNK,
+            "row": row % KERNEL_CHUNK, "head": head, "p": p}
+
+
+def cpu_model() -> str:
+    """The host's CPU: its architecture and /proc/cpuinfo's model name
+    (or, on Arm, its implementer and part)."""
+    import platform
+    fields = {}
+    try:
+        for line in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("CPU implementer", "CPU part")
+        if k in fields)
+    return f"{platform.machine()} {model or 'unknown'}"
+
+
+def host_state() -> dict:
+    """The state of this process that the host's f32 CPU path may read:
+    its threads, the CPU and the vector ISA PyTorch picked, the f32
+    matmul precision, oneDNN's switches and the fpmath and thread
+    settings of the environment."""
+    mkldnn = torch.backends.mkldnn
+    state = {"threads": torch.get_num_threads(),
+             "interop_threads": torch.get_num_interop_threads(),
+             "cpu": cpu_model(),
+             "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+             "f32_matmul_precision": torch.get_float32_matmul_precision(),
+             "mkldnn": {"available": mkldnn.is_available(),
+                        "enabled": bool(mkldnn.enabled)},
+             "env": {k: os.environ[k] for k in (
+                 "ONEDNN_DEFAULT_FPMATH_MODE", "DNNL_DEFAULT_FPMATH_MODE",
+                 "OMP_NUM_THREADS", "MKL_NUM_THREADS")
+                 if k in os.environ}}
+    fp32 = getattr(getattr(mkldnn, "matmul", None), "fp32_precision", None)
+    if fp32 is not None:
+        state["mkldnn"]["matmul_fp32_precision"] = fp32
+    return state
+
+
+def side_report(name: str, shape_name: str, label: str, args, got, want,
+                prev, tol: float) -> dict:
+    """Which side of a kernel cell's comparison moved from the previous
+    tile's (the kernel's output ``got``, the plain version's ``want``,
+    or the inputs), where each first differs, where ``got`` misses
+    ``want``, the host's state (:func:`host_state`), and for
+    ``ssm_scan`` the error of both sides of both tiles against the exact
+    per-token recurrence in f64 on the CPU and the pointers of the
+    wrapper's buffers."""
+    cpu_got = [g.cpu() for g in got]
+    moved = {}
+    if prev is not None:
+        for side, now, before in (("got", cpu_got, prev["got"]),
+                                  ("want", want, prev["want"]),
+                                  ("inputs", [a.cpu() for a in args],
+                                   prev["inputs"])):
+            moved[side] = [first_diff(a, b) for a, b in zip(now, before)]
+    miss = [first_diff((g - w).abs() > tol + tol * w.abs(),
+                       torch.zeros_like(w, dtype=torch.bool))
+            for g, w in zip(cpu_got, want)]
+    out = {"kernel": name, "shape": shape_name, "tiles": label,
+           "previous_tiles": prev["label"] if prev else None,
+           "max_abs_err": [max_err(g, w) for g, w in zip(cpu_got, want)],
+           "first_miss": miss,
+           "moved": [side for side, at in moved.items()
+                     if any(i is not None for i in at)],
+           "first_differing": moved,
+           **host_state()}
+    if name == "ssm_scan":
+        from repro_torch.kernels.ssm_scan import ops, ref
+        Y64, h64 = ref.ssm_scan_ref(*(a.cpu().double() for a in args),
+                                    dtype=torch.float64)
+        f64 = {"got": [max_err(cpu_got[0].double(), Y64),
+                       max_err(cpu_got[1].double(), h64)],
+               "want": [max_err(want[0].double(), Y64),
+                        max_err(want[1].double(), h64)]}
+        if prev is not None:
+            f64["previous_got"] = [max_err(prev["got"][0].double(), Y64),
+                                   max_err(prev["got"][1].double(), h64)]
+            f64["previous_want"] = [max_err(prev["want"][0].double(), Y64),
+                                    max_err(prev["want"][1].double(), h64)]
+        out.update(
+            err_vs_f64_ref=f64,
+            first_miss_place=scan_place(miss[0]),
+            first_differing_place={side: scan_place(at[0])
+                                   for side, at in moved.items()},
+            pointers=dict(ops.last_pointers))
+    return out
+
+
 def phase_kernel_cells(records: list, repeats: int = 2,
                        quiet: bool = False) -> list:
     """Each kernel through its tuner cell's builder (core/kernel_cell.py)
     on the card, at every registered shape and at every combination of
     its tile knobs' domains that the tuner runs (those ``validate_tile``
-    accepts), against its plain version on the same inputs (the wrapper
-    on CPU copies of them), then called ``repeats`` times more: each
+    accepts), against its plain version on the same inputs
+    (:func:`plain_output`: the spec's ``plain``, else the wrapper on CPU
+    copies of them), then called ``repeats`` times more: each
     output must be finite and equal the first bit for bit.  Every call
     on the card follows a fill of the SMs' shared memory with NaN
-    (:func:`poison_shared_memory`).  Whether the output moves with the
-    tile is reported: only flash_decode's tile reaches its kernel.
-    Returns the rows it checked (and emits them unless ``quiet``)."""
+    (:func:`poison_shared_memory`), and every ``ssm_scan`` call is
+    followed by a check that its sync buffers are back at zero
+    (:func:`assert_sync_zero`).  On a miss, and whenever a tile's output
+    or plain output differs bit for bit from the previous tile's (where
+    the spec says the tile does not reach the kernel), one
+    ``kernel_cells_side`` line says which side moved
+    (:func:`side_report`).  Whether the output moves with the tile is
+    reported.  Returns the rows it checked (and emits them unless
+    ``quiet``)."""
     import itertools
 
     from repro_torch.core.kernel_cell import KERNELS
@@ -2042,8 +2195,10 @@ def phase_kernel_cells(records: list, repeats: int = 2,
     by_name = {rec["name"]: rec for rec in records}
     rows = []
     for name, spec in sorted(KERNELS.items()):
+        after = (assert_sync_zero if name == "ssm_scan"
+                 else lambda where: None)
         for shape_name, shape in sorted(spec.shapes.items()):
-            outs = []
+            outs, prev = [], None
             for tiles in itertools.product(
                     *(SPACE[k].domain for k in spec.knobs)):
                 delta = dict(zip(spec.knobs, tiles))
@@ -2052,30 +2207,48 @@ def phase_kernel_cells(records: list, repeats: int = 2,
                         SPACE[knob].validate_tile(tile, shape.seq_len)
                 except ValueError:
                     continue            # the tuner's deterministic crash
+                label = ",".join(map(str, tiles))
+                where = f"{name}:{shape_name} tiles {label}"
                 fn, args = spec.build(shape, default_config(**delta), dev)
                 poison_shared_memory()
                 got = fn(*args)
-                want = fn(*[a.cpu() for a in args])
-                got, want = (got if isinstance(got, tuple) else (got,),
-                             want if isinstance(want, tuple) else (want,))
-                label = ",".join(map(str, tiles))
+                after(where)
+                want = plain_output(name, fn, args)
+                got = got if isinstance(got, tuple) else (got,)
                 for _ in range(repeats):
                     poison_shared_memory()
                     again = fn(*args)
+                    after(where)
                     again = again if isinstance(again, tuple) else (again,)
                     if not all(bool(torch.isfinite(a.float()).all())
                                for a in again):
                         raise AssertionError(
-                            f"{name}:{shape_name} tiles {label}: a "
-                            "non-finite output after the shared-memory "
-                            "poison")
+                            f"{where}: a non-finite output after the "
+                            "shared-memory poison")
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
                         raise AssertionError(
-                            f"{name}:{shape_name} tiles {label}: the output "
-                            "changed between calls on the same inputs")
-                err = max(check(f"{name}:{shape_name} tiles {label}", g,
-                                w.to(dev), tols.get(name, TOL[g.dtype]))
+                            f"{where}: the output changed between calls on "
+                            "the same inputs")
+                tol = tols.get(name, TOL[got[0].dtype])
+                missed = any(
+                    float(((g.cpu().float() - w.float()).abs()
+                           - tol * w.float().abs()).max()) > tol
+                    for g, w in zip(got, want))
+                moved = prev is not None and (
+                    not all(torch.equal(w, p)
+                            for w, p in zip(want, prev["want"]))
+                    or (not spec.tile_reaches_kernel and not all(
+                        torch.equal(g.cpu(), p)
+                        for g, p in zip(got, prev["got"]))))
+                if missed or moved:
+                    emit("kernel_cells_side", **side_report(
+                        name, shape_name, label, args, got, want, prev, tol))
+                err = max(check(where, g, w.to(dev, g.dtype),
+                                tols.get(name, TOL[g.dtype]))
                           for g, w in zip(got, want))
+                prev = {"label": label, "got": [g.cpu() for g in got],
+                        "want": list(want),
+                        "inputs": [a.cpu() for a in args]}
                 outs.append(got)
                 rec = by_name[name]
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -2086,7 +2259,7 @@ def phase_kernel_cells(records: list, repeats: int = 2,
                 for a, b in zip(outs[0], out)) if len(outs) > 1 else None
     if not quiet:
         emit("kernel_cells", checked=rows, repeats=repeats,
-             smem_poison=True)
+             smem_poison=True, sync_checked=True)
     return rows
 
 
@@ -2271,6 +2444,237 @@ def phase_tune_steps(root: pathlib.Path) -> dict:
             "xlstm_single_cell": xl}
 
 
+# the fleet's cells (``fabric`` phase): the four kernel cells and the
+# serve cell on the reduced config's tiny trace; (ii) kills a worker
+# over the kernel cells and has another steal its lease
+FABRIC_CELLS = TUNE_CAMPAIGNS[1][1] + ",serve:smollm-135m:poisson_tiny"
+FABRIC_TTL_S = {"cli": 5.0, "steal": 3.0}
+
+
+def _tune_cli(argv: list, timeout: float) -> subprocess.CompletedProcess:
+    """``python -m repro_torch.launch.tune <argv>`` as a user runs it,
+    the port's ``src`` on its PYTHONPATH, in a session of its own: on a
+    timeout the whole group (the coordinator and its workers) is
+    killed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if x]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.tune", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"fabric: tune {' '.join(argv)} ran past "
+                             f"{timeout} s: {err[-2000:]}")
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _logs(d: pathlib.Path) -> str:
+    """The tails of the workers' logs under ``d``, for a failure."""
+    return "\n".join(f"--- {p.name}\n{p.read_text()[-1500:]}"
+                     for p in sorted(d.rglob("*.log")))
+
+
+def _span_overlap(events: list) -> float:
+    """The longest time (s) two ``card`` spans (a trial's hold of the
+    card, core/trial.hold_device) of different workers overlap; 0 when
+    none does."""
+    spans = [(e["ts"], e["ts"] + e["dur_s"], e["worker"]) for e in events
+             if e["kind"] == "card"]
+    return max([min(a1, b1) - max(a0, b0) for a0, a1, wa in spans
+                for b0, b1, wb in spans if wa < wb] + [0.0])
+
+
+def _fabric_reports(d: pathlib.Path, cells) -> dict:
+    """Each cell's report from its checkpoint, which must say done."""
+    from repro_torch.core.strategy import get_strategy
+    out = {}
+    for spec in cells:
+        ck = json.loads((d / f"{spec.key()}.json").read_text())
+        if not ck.get("done"):
+            raise AssertionError(f"fabric: {spec.key()} is not done")
+        out[spec.key()] = get_strategy("tree").load_report(ck["report"])
+    return out
+
+
+def _timing_keys(reports: dict, cells) -> set:
+    """The timing-cache keys of every trial of ``reports`` that did not
+    crash, as the workers' evaluators key them on the card (the key
+    hashes ``cuda/<card name>``, ``measure.device_identity``)."""
+    from repro_torch.core.history import config_from_dict
+    from repro_torch.core.kernel_cell import (DispatchEvaluator,
+                                              is_kernel_workload)
+    ev = DispatchEvaluator(device="cuda")
+    by_key = {spec.key(): spec for spec in cells}
+    keys = set()
+    for key, rep in reports.items():
+        wl = by_key[key].workload()
+        sub = ev.kernel if is_kernel_workload(wl) else ev.serve
+        for e in rep.log:
+            if not e["result"]["crashed"]:
+                keys.add(sub._key(wl, config_from_dict(e["config"])))
+    return keys
+
+
+def phase_fabric(root: pathlib.Path) -> dict:
+    """The fleet on the card, through its real entry points.
+
+    (i) ``tune --workers 2 --device cuda --strategy tree --trace --fresh
+    --dir <d> --worker-ttl 5 --cells FABRIC_CELLS`` as a subprocess: it
+    exits 0; every cell is done in 1-10 trials whose only crashes are
+    tiles that do not fit (:func:`tile_error`), with one telemetry span
+    per trial (:func:`walk_summary`); no lease is left; both workers held
+    the card, and no two of their holds (``card`` spans, one for each
+    trial that reached the card, core/trial.hold_device) overlap; every
+    timing-cache
+    entry the workers wrote is keyed on this card; and ``tune --status
+    --json`` reports 5 done, 0 claimed, no lease.
+
+    (ii) Worker A alone (``spawn_worker``, TTL 3 s) over the four kernel
+    cells, SIGKILLed once a checkpoint shows an absorbed trial in a cell
+    that is not done; then worker B: it completes every cell, steals at
+    least one lease (``lease.steal``), evaluates none of the configs A
+    had absorbed, and starts its first trial on the card within TTL +
+    30 s of the kill.
+
+    The workers' kernel launches happen in their processes, not in this
+    one's counters."""
+    from repro_torch.core import fabric, telemetry
+    from repro_torch.core.campaign import parse_cells
+    from repro_torch.core.history import config_from_dict
+    from repro_torch.core.quarantine import config_key
+    t0 = time.time()
+    d = root / "fabric"
+    cells = parse_cells(FABRIC_CELLS)
+    done = _tune_cli(
+        ["--workers", "2", "--device", "cuda", "--strategy", "tree",
+         "--trace", "--fresh", "--dir", str(d), "--worker-ttl",
+         str(FABRIC_TTL_S["cli"]), "--cells", FABRIC_CELLS], timeout=600)
+    if done.returncode:
+        raise AssertionError(f"fabric: tune --workers 2 exited "
+                             f"{done.returncode}: {done.stderr[-2000:]}\n"
+                             + _logs(d))
+    cli_s = time.time() - t0
+    reports = _fabric_reports(d, cells)
+    walks = walk_summary("fabric", d, reports, d / "reports")
+    for key, rep in reports.items():
+        for e in rep.log:
+            tile = tile_error(key, e["config"])
+            if e["result"]["crashed"] and not (
+                    tile and tile in e["result"]["error"]):
+                raise AssertionError(f"fabric: {key} {e['name']} crashed: "
+                                     f"{e['result']['error']}")
+    if fabric.LeaseBoard(d).held():
+        raise AssertionError(f"fabric: leases left: "
+                             f"{fabric.LeaseBoard(d).held()}")
+    events = telemetry.read_events(d)
+    holders = {e["worker"] for e in events if e["kind"] == "card"}
+    overlap = _span_overlap(events)
+    if len(holders) != 2 or overlap > 0:
+        raise AssertionError(f"fabric: the card held by {sorted(holders)}; "
+                             f"two workers' holds overlap by {overlap} s")
+    wrote = {p.stem for p in (d / fabric.TIMINGS_DIR).glob("*.json")}
+    want = _timing_keys(reports, cells)
+    if not wrote or wrote - want or want - wrote:
+        raise AssertionError(
+            f"fabric: timing-cache entries not keyed on this card: "
+            f"{sorted(wrote - want)[:4]}, missing {sorted(want - wrote)[:4]}")
+    status = _tune_cli(["--status", "--json", "--dir", str(d), "--cells",
+                        FABRIC_CELLS], timeout=120)
+    view = json.loads(status.stdout)["queue"]
+    if view["depth"] != {"pending": 0, "claimed": 0, "done": len(cells)} \
+            or view["leases"]:
+        raise AssertionError(f"fabric: --status says {view['depth']}, "
+                             f"leases {view['leases']}")
+    per_worker = {}
+    for e in events:
+        if e["kind"] == "trial":
+            per_worker[e["worker"]] = per_worker.get(e["worker"], 0) + 1
+    if len(per_worker) != 2:
+        raise AssertionError(f"fabric: trials by {sorted(per_worker)}, not "
+                             "by two workers")
+
+    # (ii) kill one worker mid-cell; another steals its lease
+    t1 = time.time()
+    d2 = root / "fabric_steal"
+    kcells = parse_cells(TUNE_CAMPAIGNS[1][1])
+    ttl = FABRIC_TTL_S["steal"]
+
+    def worker(name):
+        return fabric.spawn_worker(kcells, d2, strategy="tree", ttl_s=ttl,
+                                   worker_id=name, trace=True, device="cuda",
+                                   log_path=d2 / "logs" / f"{name}.log")
+
+    def checkpoints():
+        out = []
+        for spec in kcells:
+            path = d2 / f"{spec.key()}.json"
+            if path.exists():
+                out.append(json.loads(path.read_text()))
+        return out
+
+    a = worker("A")
+    try:
+        deadline = time.time() + 300
+        while not any(ck["log"] and not ck.get("done")
+                      for ck in checkpoints()):
+            if a.poll() is not None or time.time() > deadline:
+                raise AssertionError(
+                    f"fabric: worker A ended (rc {a.returncode}) or ran "
+                    "out of time before a cell was half done\n" + _logs(d2))
+            time.sleep(0.02)
+    finally:
+        a.send_signal(signal.SIGKILL)
+        a.wait()
+    killed = time.time()
+    absorbed = {(ck["cell"], config_key(config_from_dict(e["config"])))
+                for ck in checkpoints() for e in ck["log"]}
+    b = worker("B")
+    try:
+        rc = b.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        b.send_signal(signal.SIGKILL)
+        b.wait()
+        raise AssertionError("fabric: worker B ran past 600 s\n" + _logs(d2))
+    if rc:
+        raise AssertionError(f"fabric: worker B exited {rc}\n" + _logs(d2))
+    _fabric_reports(d2, kcells)
+    events2 = telemetry.read_events(d2)
+    steals = [e for e in events2 if e["kind"] == "lease.steal"]
+    b_trials = [e for e in events2
+                if e["kind"] == "trial" and e["worker"] == "B"]
+    repaid = {(e["cell"], e["config"]) for e in b_trials} & absorbed
+    on_card = [e["ts"] for e in events2
+               if e["kind"] == "card" and e["worker"] == "B"]
+    first = min(on_card) - killed if on_card else None
+    if not steals or repaid or first is None or first > ttl + 30:
+        raise AssertionError(
+            f"fabric: {len(steals)} steal(s), {len(repaid)} absorbed "
+            f"trial(s) evaluated again, B's first trial {first} s after "
+            "the kill\n" + _logs(d2))
+    a_trials = sum(1 for e in events2
+                   if e["kind"] == "trial" and e["worker"] == "A")
+    return {"wall_s": time.time() - t0, "cli_s": cli_s,
+            "steal_s": time.time() - t1,
+            "cells": [w["cell"] for w in walks],
+            "trials": {w["cell"]: len(w["trials"]) for w in walks},
+            "trials_per_worker": per_worker,
+            "card_holds": sum(e["kind"] == "card" for e in events),
+            "max_card_overlap_s": overlap,
+            "timing_entries": len(wrote),
+            "steal": {"absorbed_at_kill": len(absorbed),
+                      "trials_A": a_trials, "trials_B": len(b_trials),
+                      "steals": len(steals),
+                      "steal_cells": [e["cell"] for e in steals],
+                      "first_trial_after_kill_s": first,
+                      "max_card_overlap_s": _span_overlap(events2)},
+            "launches": None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -2317,6 +2721,11 @@ def main(argv=None) -> int:
                     raise AssertionError(f"{path}: {name} was never "
                                          "launched")
             torch.cuda.empty_cache()
+        # the fleet: its workers' launches are counted in their own
+        # processes, not here
+        result = phase_fabric(pathlib.Path(root))
+        by_path["fabric"] = None
+        emit("fabric", **result)
         # training launches no kernel (the step runs the eager ops: the
         # kernels are forward-only, as the reference's are); the step
         # cells' prefill and decode trials launch three
@@ -2339,9 +2748,11 @@ def main(argv=None) -> int:
                                          f"{got[name]} times")
             torch.cuda.empty_cache()
     for rec in records:
-        rec["launches_by_path"] = {a: got[rec["name"]]
-                                   for a, got in by_path.items()}
-        rec["launches"] = sum(rec["launches_by_path"].values())
+        rec["launches_by_path"] = {
+            a: None if got is None else got[rec["name"]]
+            for a, got in by_path.items()}
+        rec["launches"] = sum(n for n in rec["launches_by_path"].values()
+                              if n is not None)
     print(json.dumps({"kernels": records}), flush=True)
     emit("done", seconds=round(time.time() - t0, 1))
     print(smi, flush=True)

@@ -48,8 +48,8 @@ checkpoints, signatures and reports are byte-identical to the
 reference's.  It differs in two places.  Its checkpoints default to a
 directory of its own (``results/torch/campaign/``).  And the default
 evaluator times every cell on one device (the card unless the CPU is
-asked for).  The fabric (slice 6 of ROADMAP.md queue A) is not
-ported.
+asked for).  The fabric's workers (core/fabric.py) run one such
+campaign per leased cell.
 """
 from __future__ import annotations
 

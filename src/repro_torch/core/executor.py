@@ -40,8 +40,10 @@ fault-free accounting is bit-identical to the unhardened executor):
 
 This is the PyTorch port's own copy of the reference's
 ``core/executor.py``: its output is byte-identical to the reference's.
-One difference: a deadline counts a trial's time on its device, not its
-wait for the device's lock (core/trial.TrialClock), up to one deadline.
+Two differences: a deadline counts a trial's time on its device, not its
+wait for the device's lock (core/trial.TrialClock), up to one deadline;
+and each time a trial holds a card (core/trial.hold_device) is a
+``card`` telemetry span.
 """
 from __future__ import annotations
 
@@ -223,7 +225,8 @@ class SweepExecutor:
         token = q.begin(wl.key(), rt) if q is not None else None
         try:
             if self.trial_timeout_s is None:
-                res = _safe_eval(self.evaluator, wl, rt)
+                with trial_clock(TrialClock(self.telemetry, cell=wl.key())):
+                    res = _safe_eval(self.evaluator, wl, rt)
             else:
                 res = self._attempt_with_deadline(wl, rt)
         except BaseException:
@@ -243,7 +246,7 @@ class SweepExecutor:
                                rt: TunableConfig) -> TrialResult:
         done = threading.Event()
         box: Dict[str, TrialResult] = {}
-        clock = TrialClock()
+        clock = TrialClock(self.telemetry, cell=wl.key())
 
         def work():
             with trial_clock(clock):

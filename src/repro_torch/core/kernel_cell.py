@@ -84,12 +84,18 @@ class KernelShape:
 class KernelSpec:
     """One tunable kernel: its SPACE tile projection, its shapes, and
     a builder ``(shape, config, device) -> (fn, args)`` where ``fn``
-    applies the kernel's wrapper with the config's tiles."""
+    applies the kernel's wrapper with the config's tiles.
+    ``tile_reaches_kernel`` says whether the tiles change what the card
+    runs (the others' kernels run tiles of their own), and ``plain``,
+    where set, gives from ``args`` the outputs the kernel is held to on
+    the card in place of its wrapper on CPU copies of them."""
     name: str
     knobs: Tuple[str, ...]
     shapes: Dict[str, KernelShape]
     build: Callable[[KernelShape, TunableConfig, torch.device],
                     Tuple[Callable, Tuple]]
+    tile_reaches_kernel: bool = False
+    plain: Optional[Callable[[Tuple], Tuple]] = None
 
 
 def _shape(name: str, seq_len: int, **dims: int) -> KernelShape:
@@ -146,6 +152,15 @@ def _build_ssm_scan(shape: KernelShape, rt: TunableConfig,
     return fn, (X, Bm, Cm, dt, la)
 
 
+def _plain_ssm_scan(args) -> Tuple:
+    """The scan's plain version at the kernel's chunk, computed in f64 on
+    the CPU: on the card's host its f32 path once gave another answer
+    for the same input (ROADMAP.md queue C)."""
+    from repro_torch.kernels.ssm_scan import ops, ref
+    return ref.ssm_scan_tiled(*(a.cpu().double() for a in args),
+                              ops.KERNEL_CHUNK, dtype=torch.float64)
+
+
 def _build_rmsnorm(shape: KernelShape, rt: TunableConfig,
                    device: torch.device):
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -171,11 +186,11 @@ KERNELS: Dict[str, KernelSpec] = {
         "flash_decode", ("attn_block_kv",),
         {"tiny": _shape("tiny", 512, B=1, H=4, Hkv=2, S=512, hd=64,
                         length=384)},
-        _build_flash_decode),
+        _build_flash_decode, tile_reaches_kernel=True),
     "ssm_scan": KernelSpec(
         "ssm_scan", ("attn_block_q",),
         {"tiny": _shape("tiny", 512, B=1, S=512, H=2, P=8, N=8)},
-        _build_ssm_scan),
+        _build_ssm_scan, plain=_plain_ssm_scan),
     "rmsnorm": KernelSpec(
         "rmsnorm", ("attn_block_q",),
         {"tiny": _shape("tiny", 4096, rows=4096, d=512)},

@@ -40,9 +40,7 @@ late-scheduled cell may be seeded by trials the same run already
 appended — deliberate, and replay-exact via the checkpointed seeds.
 
 This is the PyTorch port's copy of the reference's ``core/schedule.py``;
-intake order and priorities are identical.  ``queue_status`` needs the
-fabric's lease board and raises until the fabric is ported (ROADMAP.md
-queue A, slice 6).
+intake order, priorities and the queue view are identical.
 """
 from __future__ import annotations
 
@@ -431,9 +429,78 @@ class CellQueue:
 def queue_status(directory: pathlib.Path, strategy: str = "tree",
                  cells: Optional[Sequence[CellSpec]] = None
                  ) -> Dict[str, Any]:
-    """The operator's queue view (``launch/tune.py --status``).  It
-    reads the fabric's lease board, which is not ported yet."""
-    raise NotImplementedError(
-        "queue_status (tune --status) reads the fabric's lease board, "
-        "which is not ported yet (ROADMAP.md queue A, slice 6: the "
-        "fleet)")
+    """The operator's queue view (``launch/tune.py --status``): every
+    cell known to a campaign directory — explicit ``cells``, checkpoint
+    files and intake submissions — with its checkpoint state, plus the
+    live lease board (:meth:`~repro_torch.core.fabric.LeaseBoard.held`) so
+    claimed/expired cells are visible without reading lease files by
+    hand.  Read-only: never claims, never evaluates."""
+    from repro_torch.core.fabric import LeaseBoard, checkpoint_done
+    directory = pathlib.Path(directory)
+    known: Dict[str, Dict[str, Any]] = {}
+
+    def note(key: str, **kw) -> Dict[str, Any]:
+        d = known.setdefault(key, {"cell": key, "source": "checkpoint",
+                                   "done": False})
+        d.update(kw)
+        return d
+
+    for spec in (cells or []):
+        note(spec.key(), source="seed")
+    for spec in scan_intake(directory):
+        entry = note(spec.key())
+        if entry["source"] != "seed":
+            entry["source"] = "intake"
+    for path in sorted(directory.glob("*.json")):
+        try:
+            d = json.loads(path.read_text())
+        except (OSError, ValueError):
+            continue
+        if isinstance(d, dict) and "cell" in d and "strategy" in d:
+            # discovery only — done-ness is judged below by the one
+            # shared criterion (checkpoint_done), so --status can never
+            # call a cell done that a worker would re-tune
+            entry = note(d["cell"])
+            if isinstance(d.get("health"), dict):
+                # per-cell failure/retry/quarantine counts so a
+                # degrading campaign is visible before it finishes
+                entry["health"] = d["health"]
+    board = LeaseBoard(directory)
+    leases, now = [], time.time()
+    for st in board.held():
+        leases.append({"cell": st.cell, "worker": st.worker,
+                       "host": st.host,
+                       "age_s": round(now - st.heartbeat_at, 1),
+                       "ttl_s": st.ttl_s,
+                       "expired": st.expired(now)})
+        if st.cell not in known:
+            note(st.cell, source="lease")
+        if not st.expired(now):
+            known[st.cell]["claimed_by"] = st.worker
+    for key in known:
+        known[key]["done"] = known[key]["done"] \
+            or checkpoint_done(directory, key, strategy)
+    pending = [k for k, d in known.items()
+               if not d["done"] and "claimed_by" not in d]
+    claimed = [k for k, d in known.items()
+               if not d["done"] and "claimed_by" in d]
+    # report the stop's request time, not just existence: the sentinel
+    # is deliberately never deleted, so without the age an operator
+    # can't tell a live drain from a stale leftover a newer watch
+    # session is (correctly) ignoring
+    stop_ts = _stop_requested_at(intake_dir(directory) / STOP_FILENAME)
+    out = {
+        "dir": str(directory),
+        "strategy": strategy,
+        "depth": {"pending": len(pending), "claimed": len(claimed),
+                  "done": sum(d["done"] for d in known.values())},
+        "stop_requested": stop_ts is not None,
+        "stop_requested_at": stop_ts,
+        "cells": sorted(known.values(), key=lambda d: d["cell"]),
+        "leases": leases,
+    }
+    from repro_torch.core.quarantine import Quarantine
+    q = Quarantine(directory)
+    if q.path.exists():
+        out["quarantine"] = q.summary()
+    return out

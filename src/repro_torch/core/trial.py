@@ -15,16 +15,23 @@ raises ``NotImplementedError`` when it is built.  Kernel and serve cells
 are evaluated by ``core/kernel_cell.KernelBenchEvaluator`` and
 ``serving/evaluator.ServeEvaluator``.  Every evaluator takes its device
 through :func:`hold_device`; the executor's deadline counts a trial's
-time on its device, not its wait for it (:class:`TrialClock`).
+time on its device, not its wait for it (:class:`TrialClock`).  On a
+card, :func:`hold_device` also takes the card's file lock
+(:func:`hold_card`), so processes that share one card time their trials
+one at a time (the port's own: the reference's workers time nothing).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
+import fcntl
 import json
 import math
+import os
 import pathlib
+import re
+import tempfile
 import threading
 import time
 from typing import Any, Callable, Dict, Optional
@@ -396,18 +403,68 @@ def device_lock(device) -> threading.Lock:
         return lock
 
 
+def card_lock_path(device) -> Optional[pathlib.Path]:
+    """The host-local file whose ``flock`` orders the processes that time
+    trials on ``device``: one per card, under the system temp directory,
+    named by the card's UUID (which ``CUDA_VISIBLE_DEVICES`` does not
+    renumber, as it does the index).  None for a device that is not a
+    card (or where no card is present): the CPU's trials of two
+    processes run at the same time, as the reference's host workers
+    do."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    uuid = str(torch.cuda.get_device_properties(index).uuid)
+    name = re.sub(r"[^A-Za-z0-9_-]", "_", uuid)
+    return pathlib.Path(tempfile.gettempdir()) / f"repro_torch-card-{name}.lock"
+
+
+@contextlib.contextmanager
+def hold_card(device):
+    """Hold ``device``'s card across processes: an exclusive ``flock`` of
+    :func:`card_lock_path`; yields that path, or None (and locks
+    nothing) for a device that is not a card.  The OS drops it when its
+    holder dies, even by SIGKILL, so a killed process never wedges the
+    card."""
+    path = card_lock_path(device)
+    if path is None:
+        yield None
+        return
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o666)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield path
+    finally:
+        os.close(fd)                     # closing drops the lock
+
+
 class TrialClock:
     """What an executor's deadline counts of one trial.  The executor
-    hands each trial it runs under a deadline a clock
-    (:func:`trial_clock`); :func:`hold_device` stops it while the trial
-    waits for its device, so the wait is not the trial's time, and a
-    trial the executor has abandoned never starts on the device."""
+    hands each trial it runs a clock (:func:`trial_clock`);
+    :func:`hold_device` stops it while the trial waits for its device,
+    so the wait is not the trial's time, and a trial the executor has
+    abandoned never starts on the device.  With ``telemetry``, each time
+    the trial holds a card is a ``card`` span with ``fields``: the time
+    it had the card to itself, which two processes' spans never share."""
 
-    def __init__(self):
+    def __init__(self, telemetry=None, **fields):
         self._lock = threading.Lock()
         self._waited = 0.0
         self._since: Optional[float] = None
         self.abandoned = False
+        self.telemetry = telemetry
+        self.fields = fields
+
+    def card_span(self, device):
+        """The span of one hold of ``device``'s card (none without
+        telemetry)."""
+        t = self.telemetry
+        if t is None or not t.enabled:
+            return contextlib.nullcontext()
+        return t.span("card", device=str(device), **self.fields)
 
     def waited_s(self) -> float:
         """Seconds spent waiting for a device so far, the running wait
@@ -432,31 +489,40 @@ _CLOCK = threading.local()
 @contextlib.contextmanager
 def trial_clock(clock: TrialClock):
     """Run the calling thread's trial on ``clock``."""
+    outer = getattr(_CLOCK, "clock", None)
     _CLOCK.clock = clock
     try:
         yield clock
     finally:
-        _CLOCK.clock = None
+        _CLOCK.clock = outer
 
 
 @contextlib.contextmanager
 def hold_device(device):
-    """Hold ``device``'s lock for one trial.  The wait for it stops the
-    trial's clock; a trial abandoned at its deadline while it waited
-    fails as a timeout instead of running."""
+    """Hold ``device``'s lock for one trial: the thread lock of this
+    process (:func:`device_lock`), then, on a card, the card's file lock
+    across processes (:func:`hold_card`).  The wait for both stops
+    the trial's clock; a trial abandoned at its deadline while it waited
+    fails as a timeout instead of running.  The time it holds a card is
+    its clock's ``card`` span."""
     clock: Optional[TrialClock] = getattr(_CLOCK, "clock", None)
     lock = device_lock(device)
     if clock is not None:
         clock._wait(True)
     lock.acquire()
-    if clock is not None:
-        clock._wait(False)
     try:
-        if clock is not None and clock.abandoned:
-            raise TrialError("trial abandoned at its deadline before it "
-                             "reached the device", FAILURE_TIMEOUT)
-        yield
+        with hold_card(device) as card:
+            if clock is not None:
+                clock._wait(False)
+            if clock is not None and clock.abandoned:
+                raise TrialError("trial abandoned at its deadline before "
+                                 "it reached the device", FAILURE_TIMEOUT)
+            with (clock.card_span(device) if clock is not None and card
+                  else contextlib.nullcontext()):
+                yield
     finally:
+        if clock is not None:
+            clock._wait(False)           # a failed wait ends it too
         lock.release()
 
 

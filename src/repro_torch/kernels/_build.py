@@ -5,7 +5,10 @@ At first use they are compiled with ``nvcc`` for ``sm_90a`` — one
 compiler process per source, all started together — linked into one
 shared library under ``<repo root>/build/repro_torch/`` and loaded with
 ``ctypes``.  The library's file name carries a hash of the sources, so
-an edited source is rebuilt and a finished build is reused.
+an edited source is rebuilt and a finished build is reused.  Processes
+(and threads) that build at once, as the fabric's workers do on a fresh
+checkout, each compile into object files of their own and each land a
+whole library by an atomic rename.
 
 Nothing here runs when the module is imported: hosts without a CUDA
 toolkit import the package and use the plain versions on CPU tensors.
@@ -18,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -95,30 +99,38 @@ def _compile(srcs: List[pathlib.Path], out: pathlib.Path,
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     extra = ["-Xptxas", "-v"] if verbose else []
-    procs = []
-    for src in srcs:
-        obj = BUILD_DIR / f"{out.stem}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
-        procs.append((obj, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs, failed = [], []
-    for obj, cmd, proc in procs:
-        log, _ = proc.communicate()
-        logs.append(log)
-        if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{log}")
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    if verbose:
-        print("".join(logs))
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    link = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o, _, _ in procs]]
-    done = subprocess.run(link, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"link failed: {' '.join(link)}\n{done.stdout}")
-    os.replace(tmp, out)     # concurrent builds each land a whole file
+    # this build's own names: another process or thread may be building
+    # the same digest into the same directory
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs = [BUILD_DIR / f"{out.stem}.{src.stem}.{tag}.o" for src in srcs]
+    tmp = out.with_suffix(f".{tag}.tmp")
+    try:
+        procs = []
+        for src, obj in zip(srcs, objs):
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        if verbose:
+            print("".join(logs))
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        done = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"link failed: {' '.join(link)}\n"
+                               f"{done.stdout}")
+        os.replace(tmp, out)     # concurrent builds each land a whole file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
 
 
 def lib(verbose: bool = False) -> ctypes.CDLL:

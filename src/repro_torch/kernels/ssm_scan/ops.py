@@ -20,6 +20,9 @@ MAX_STATE = 64       # largest P (head dim) and N (state size)
 # as rt_ssm_scan_chunk()): the chunk of the plain version on the CPU
 KERNEL_CHUNK = 64
 launches = 0         # kernel launches made by this wrapper
+# the data pointers of the last launch's ``slots`` and ``sync`` buffers
+# (what a report of a wrong output names)
+last_pointers: Dict[str, int] = {}
 
 # the kernel's tickets and flags per (device, stream): calls on one stream
 # run one after another, and each call leaves them at zero for the next
@@ -83,5 +86,6 @@ def ssm_scan(X, Bm, Cm, dt, la, *, chunk: int = 256):
         slots.data_ptr(), sync.data_ptr(), sync.numel(), B, S, H, P, N,
         int(X.dtype == torch.bfloat16), stream)
     _build.check(err, "ssm_scan")
+    last_pointers.update(slots=slots.data_ptr(), sync=sync.data_ptr())
     launches += 1
     return Y, h_final

@@ -9,6 +9,8 @@ the card.
         --cells smollm-135m:prefill_card,smollm-135m:train_card
     PYTHONPATH=src python -m repro_torch.launch.tune --device cpu \\
         --cells serve:smollm-135m:poisson_tiny --fresh --checkpoint-dir DIR
+    PYTHONPATH=src python -m repro_torch.launch.tune --workers 2 \\
+        --dir DIR --trace --fresh --cells kernel:rmsnorm:tiny,...
 
 This is the PyTorch port of the reference's ``launch/tune.py``.  Every
 trial is a measured run on ``--device`` (default ``cuda``; with no card
@@ -39,37 +41,43 @@ are reached by name; ``decode_card`` decodes at its last row
 (``--budget``, ``--seed``, ``--model-min-records``, ``--model-top-k``).
 ``--warm-start``, ``--prioritize``, the trial hardening flags
 (``--trial-timeout``, ``--max-retries``, ``--strike-threshold``), the
-measured re-rank (``--measure-top-k``), the serving guard and promotion
-(``--slo-ttft``, ``--promote``) and telemetry (``--trace``,
-``--trace-out``) behave as in the reference.
+measured re-rank (``--measure-top-k``, ``--measured-evaluator``), the
+serving guard and promotion (``--slo-ttft``, ``--promote``) and
+telemetry (``--trace``, ``--trace-out``) behave as in the reference;
+``--all`` walks every cell of ``campaign.enumerate_cells``.
 
-Not ported yet (ROADMAP.md queue A, slice 6), each raising
-``NotImplementedError`` that names its slice: the fabric, worker and
-intake flags (``--worker``, ``--workers``, ``--coordinate``,
-``--add-cells``, ``--status``, ``--stop``, ``--watch``, ``--all``,
-``--evaluator``, ``--measured-evaluator``).
+The fleet (core/fabric.py) behaves as in the reference: ``--workers N``
+(or ``--coordinate``) spawns N local workers over one shared directory
+(``--dir``, the same as ``--checkpoint-dir``) and waits; ``--worker``
+joins one as a single worker; ``--add-cells`` submits cells to a running
+campaign or fabric, ``--watch`` keeps workers claiming them, ``--stop``
+ends the watch, ``--status [--json]`` prints the queue view.  Workers
+time their trials on ``--device``, which the coordinator forwards, and
+keep their timing caches in the shared directory's ``timings/``; the
+workers of one card take turns on it trial by trial through its file
+lock (core/trial.hold_device).
 """
 from __future__ import annotations
 
-import argparse
-import dataclasses
-import json
-import pathlib
-import sys
+import time
 
-from repro_torch.core import report
-from repro_torch.core.params import SENSITIVITY_SWEEP, default_config
+# taken before the imports below, which load torch: a --watch worker
+# ignores a STOP sentinel older than its process
+# (core/schedule.stop_requested_since)
+_START_TS = time.time()
+
+import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import pathlib  # noqa: E402
+import sys  # noqa: E402
+
+from repro_torch.core import report  # noqa: E402
+from repro_torch.core.params import (SENSITIVITY_SWEEP,  # noqa: E402
+                                     default_config)
 
 RESULTS_DIR = pathlib.Path(__file__).resolve().parents[3] / "results" / \
     "torch" / "tuning"
-
-SLICE_6 = "ROADMAP.md queue A, slice 6: the fleet"
-# the reference's fabric, worker and intake flags: switches, then flags
-# that take a value
-FLEET_SWITCHES = ("--all", "--watch", "--status", "--stop", "--worker",
-                  "--coordinate", "--json")
-FLEET_VALUES = ("--workers", "--add-cells", "--dir", "--evaluator",
-                "--measured-evaluator")
 
 
 def _baseline(overrides=None):
@@ -167,16 +175,18 @@ def campaign_dir(strategy: str = "tree", override=None) -> pathlib.Path:
 
 
 def fresh_campaign_dir(ckpt: pathlib.Path, cells) -> None:
-    """``--fresh``: discard the cells' checkpoints, the *whole* intake
-    (a stale submission must not re-admit a foreign cell into the fresh
+    """``--fresh``: discard the cells' checkpoints AND their leases, the
+    *whole* intake (every submission plus any STOP sentinel: a stale
+    submission must not re-admit a foreign cell into the fresh
     campaign) and stale cross-cell summaries.  The trial history is
-    deliberately kept (``--warm-start``).  The port has no fabric, so
-    there are no leases to clear."""
+    deliberately kept (``--warm-start``)."""
+    from repro_torch.core.fabric import LeaseBoard
     from repro_torch.core.schedule import clear_intake
     for spec in cells:
         path = ckpt / f"{spec.key()}.json"
         if path.exists():
             path.unlink()
+    LeaseBoard(ckpt).clear([spec.key() for spec in cells])
     clear_intake(ckpt)
     for name in ("campaign.md", "campaign_stats.json"):
         if (ckpt / name).exists():
@@ -276,6 +286,223 @@ def tune_campaign(cells, threshold: float = 0.05, baseline_overrides=None,
     return reports, camp.last_stats
 
 
+def _load_measured(args):
+    """Resolve --measured-evaluator (None -> the campaign's default
+    measured tier on the device, built only when K > 0)."""
+    if not args.measured_evaluator:
+        return None
+    from repro_torch.core.fabric import load_evaluator
+    return load_evaluator(args.measured_evaluator)
+
+
+def _reports_dir(args):
+    """Where a run's per-cell reports go: ``<dir>/reports`` when a
+    directory is given, else ``results/torch/tuning``."""
+    return pathlib.Path(args.checkpoint_dir) / "reports" \
+        if args.checkpoint_dir else None
+
+
+def run_worker(args, cells, options) -> int:
+    """``--worker``: one fabric worker over a shared directory, its
+    trials on ``--device`` (which must exist)."""
+    from repro_torch.core.fabric import TIMINGS_DIR, FabricWorker, \
+        load_evaluator
+    from repro_torch.models.model import resolve_device
+    device = resolve_device(args.device)
+    ckpt = campaign_dir(args.strategy, args.checkpoint_dir)
+    evaluator = max_workers = None
+    if args.evaluator:
+        evaluator = load_evaluator(args.evaluator)
+    elif args.slo_ttft is not None:
+        # default dispatch stack with the serve tier's SLO guard armed
+        from repro_torch.core.kernel_cell import DispatchEvaluator
+        evaluator = DispatchEvaluator(slo_ttft=args.slo_ttft, device=device,
+                                      cache_dir=ckpt / TIMINGS_DIR)
+        max_workers = 1
+    worker = FabricWorker(
+        cells, ckpt, strategy=args.strategy, strategy_options=options,
+        threshold=args.threshold,
+        evaluator=evaluator,
+        baseline_factory=lambda spec: _baseline(),
+        worker_id=args.worker_id, ttl_s=args.worker_ttl,
+        warm_start=args.warm_start, max_workers=max_workers,
+        prioritize=args.prioritize, watch=args.watch,
+        started_at=_START_TS,
+        ready_file=pathlib.Path(args.ready_file)
+        if args.ready_file else None,
+        go_file=pathlib.Path(args.go_file) if args.go_file else None,
+        trial_timeout_s=args.trial_timeout,
+        max_retries=args.max_retries,
+        strike_threshold=args.strike_threshold,
+        measure_top_k=args.measure_top_k,
+        measured_evaluator=_load_measured(args),
+        promote=args.promote, trace=args.trace, device=device)
+    stats = worker.run()
+    print(json.dumps(stats, indent=1))
+    return 0
+
+
+def run_fabric(args, cells, options) -> int:
+    """``--workers N`` / ``--coordinate``: spawn local workers over the
+    per-strategy campaign directory, on ``--device``, wait, summarize."""
+    from repro_torch.core.fabric import run_coordinator
+    from repro_torch.models.model import resolve_device
+    resolve_device(args.device)
+    ckpt = campaign_dir(args.strategy, args.checkpoint_dir)
+    if args.fresh:
+        fresh_campaign_dir(ckpt, cells)
+    n = args.workers or 2
+    out = run_coordinator(
+        cells, ckpt, workers=n, strategy=args.strategy,
+        strategy_options=options,
+        evaluator_spec=args.evaluator, ttl_s=args.worker_ttl,
+        threshold=args.threshold, warm_start=args.warm_start,
+        prioritize=args.prioritize, watch=args.watch,
+        trial_timeout_s=args.trial_timeout,
+        max_retries=args.max_retries,
+        strike_threshold=args.strike_threshold,
+        measure_top_k=args.measure_top_k,
+        measured_evaluator_spec=args.measured_evaluator,
+        slo_ttft=args.slo_ttft, promote=args.promote,
+        trace=args.trace,
+        extra_args=_worker_passthrough(args),
+        log_dir=ckpt / "worker_logs", device=args.device)
+    reports, stats = out["reports"], out["stats"]
+    if args.trace:
+        # final coordinator-side fold over every worker's events
+        from repro_torch.core import telemetry as _telemetry
+        _telemetry.publish_metrics(ckpt)
+    for rep in reports.values():
+        _save_cell_report(rep, args.strategy, _reports_dir(args))
+    _write_campaign_summary(ckpt, reports, stats)
+    print(report.strategy_markdown(reports))
+    print(f"\n[fabric:{stats['strategy']}] {stats['cells']} cells, "
+          f"{stats['workers']} workers, {stats['wall_s']}s "
+          f"({stats['cells_per_hour']} cells/h)")
+    return 0
+
+
+def run_add_cells(args) -> int:
+    """``--add-cells``: submit cells to a (possibly running) campaign
+    directory's intake — a watching fabric or an in-flight campaign
+    admits them between batches, no restart needed."""
+    from repro_torch.core.campaign import parse_cells
+    from repro_torch.core.schedule import submit_cells
+    cells = parse_cells(args.add_cells,
+                        default_multi_pod=args.multi_pod)
+    ckpt = campaign_dir(args.strategy, args.checkpoint_dir)
+    paths = submit_cells(ckpt, cells)
+    for spec, path in zip(cells, paths):
+        print(f"submitted {spec.key()} -> {path}")
+    print(f"{len(cells)} cell(s) in intake of {ckpt}")
+    return 0
+
+
+def run_status(args, cells) -> int:
+    """``--status``: the operator's queue view — pending/claimed/done
+    depth, per-cell state (intake submissions included) and the live
+    lease board (held/expired leases, no lease-file spelunking)."""
+    from repro_torch.core import telemetry as _telemetry
+    from repro_torch.core.schedule import queue_status
+    ckpt = campaign_dir(args.strategy, args.checkpoint_dir)
+    status = queue_status(ckpt, strategy=args.strategy, cells=cells)
+    # live metrics: folded from the event stream right now, not the
+    # last published metrics.json snapshot
+    events = _telemetry.read_events(ckpt)
+    metrics = _telemetry.fold_metrics(events) if events else None
+    if args.json:
+        print(json.dumps({"v": 1, "queue": status, "metrics": metrics},
+                         indent=1, sort_keys=True))
+        return 0
+    depth = status["depth"]
+    print(f"campaign dir: {status['dir']}")
+    print(f"strategy:     {status['strategy']}")
+    stop = ""
+    if status["stop_requested"]:
+        age = time.time() - (status["stop_requested_at"] or 0.0)
+        stop = f"  [STOP requested {age:.0f}s ago — a watch worker " \
+               "started since then ignores it]"
+    print(f"queue depth:  {depth['pending']} pending / "
+          f"{depth['claimed']} claimed / {depth['done']} done" + stop)
+    for d in status["cells"]:
+        state = "done" if d["done"] else (
+            f"claimed by {d['claimed_by']}" if "claimed_by" in d
+            else "pending")
+        line = f"  {d['cell']:<40} {state:<28} ({d['source']})"
+        health = d.get("health")
+        if health:
+            bits = [f"{n} {kind}" for kind, n in
+                    sorted((health.get("failures") or {}).items())]
+            if health.get("retries"):
+                bits.append(f"{health['retries']} retried")
+            if health.get("quarantined"):
+                bits.append(f"{health['quarantined']} quarantined")
+            if health.get("degraded"):
+                bits.append("DEGRADED")
+            line += "  [" + "; ".join(bits) + "]"
+        print(line)
+    if status["leases"]:
+        print("leases:")
+        for lease in status["leases"]:
+            flag = "EXPIRED" if lease["expired"] else "live"
+            print(f"  {lease['cell']:<40} {lease['worker']} "
+                  f"@{lease['host']} hb {lease['age_s']}s/"
+                  f"{lease['ttl_s']}s [{flag}]")
+    else:
+        print("leases: (none held)")
+    quarantine = status.get("quarantine")
+    if quarantine:
+        print(f"quarantine:   {quarantine['intents']} intents / "
+              f"{quarantine['completions']} completions, "
+              f"{len(quarantine['quarantined'])} config(s) quarantined "
+              f"(threshold {quarantine['strike_threshold']})")
+        for key, n in quarantine["strikes"].items():
+            mark = " QUARANTINED" if key in quarantine["quarantined"] \
+                else ""
+            print(f"  config {key}: {n} strike(s){mark}")
+    if metrics:
+        g = metrics["gauges"]
+        a = metrics["attribution"]
+        c = metrics["counters"]
+        hit = g.get("cache_hit_rate")
+        print(f"telemetry:    {metrics['events']} events / "
+              f"{a['wall_s']}s wall — {g['trials_per_s']} trials/s, "
+              f"cache hit {'—' if hit is None else format(hit, '.0%')}, "
+              f"{c['lease_steals']} steal(s), "
+              f"{c['quarantine_strikes']} strike(s), "
+              f"{c['slo_aborts']} SLO abort(s)")
+        for w, d in metrics["per_worker"].items():
+            print(f"  {w:<40} {d['trials']} trial(s), busy "
+                  f"{d['busy_s']}s ({format(d['utilization'], '.0%')})")
+    return 0
+
+
+def run_stop(args) -> int:
+    """``--stop``: drop the STOP sentinel — ``--watch`` workers exit
+    once every admitted cell is done."""
+    from repro_torch.core.schedule import request_stop
+    ckpt = campaign_dir(args.strategy, args.checkpoint_dir)
+    path = request_stop(ckpt)
+    print(f"stop requested: {path}")
+    return 0
+
+
+def _worker_passthrough(args) -> list:
+    """Strategy options forwarded verbatim to spawned workers."""
+    extra = []
+    if args.sweep_knobs:
+        extra += ["--sweep-knobs", args.sweep_knobs]
+    if args.budget is not None:
+        extra += ["--budget", str(args.budget)]
+    if args.seed is not None:
+        extra += ["--seed", str(args.seed)]
+    if args.model_min_records is not None:
+        extra += ["--model-min-records", str(args.model_min_records)]
+    if args.model_top_k is not None:
+        extra += ["--model-top-k", str(args.model_top_k)]
+    return extra
+
+
 def run_trace_out(args) -> int:
     """``--trace-out``: fold the campaign directory's recorded event
     stream into Chrome-trace/Perfetto JSON, then exit."""
@@ -300,11 +527,16 @@ def main(argv=None) -> int:
                     help="campaign mode: comma-separated cell specs "
                          "(arch:shape[:pod|multipod], "
                          "kernel:<name>:<shape>, serve:<arch>:<trace>)")
+    ap.add_argument("--all", action="store_true",
+                    help="campaign mode: every applicable cell of the "
+                         "assignment")
     ap.add_argument("--device", default="cuda",
                     help="device every trial runs on (default cuda; "
-                         "cpu runs the kernels' plain versions)")
-    ap.add_argument("--checkpoint-dir",
-                    help="campaign directory: checkpoints, history, "
+                         "cpu runs the kernels' plain versions); fabric "
+                         "workers get it from the coordinator")
+    ap.add_argument("--checkpoint-dir", "--dir", dest="checkpoint_dir",
+                    help="campaign or shared fabric directory: "
+                         "checkpoints, history, leases, intake, "
                          "telemetry, campaign.md and the per-cell "
                          "reports (default: results/torch/campaign/ "
                          "per strategy)")
@@ -332,117 +564,269 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--threshold", type=float, default=0.05)
     ap.add_argument("--fresh", action="store_true",
-                    help="discard the cells' checkpoints and intake "
-                         "submissions, re-tune (the trial history is "
-                         "kept)")
-    ap.add_argument("--prioritize", default="arch",
-                    choices=["arch", "history"],
-                    help="cell scheduling order (core/schedule.py)")
-    ap.add_argument("--warm-start", action="store_true",
-                    help="seed fresh cells from the best configs of "
-                         "the nearest already-tuned cells in the trial "
-                         "history")
-    ap.add_argument("--trial-timeout", type=float, default=None,
-                    metavar="SECONDS",
-                    help="per-trial evaluation deadline (default: none)")
-    ap.add_argument("--max-retries", type=int, default=0,
-                    help="re-evaluate transient failures up to N times "
-                         "(default 0)")
-    ap.add_argument("--strike-threshold", type=int, default=None,
-                    help="quarantine a config after this many strikes "
-                         "(default 3)")
-    ap.add_argument("--measure-top-k", type=int, default=0, metavar="K",
-                    help="after each cell's walk, re-evaluate its top-K "
-                         "surviving configs and publish the measured "
-                         "winner (default 0: off)")
-    ap.add_argument("--slo-ttft", type=float, default=None,
-                    metavar="FACTOR",
-                    help="SLO guardrail for serve cells: abort any "
-                         "candidate whose TTFT or queue delay exceeds "
-                         "FACTOR x the incumbent's (default: off)")
-    ap.add_argument("--promote", action="store_true",
-                    help="publish each serve cell's surviving winner to "
-                         "the campaign directory's live-config board")
-    ap.add_argument("--trace", action="store_true",
-                    help="record telemetry (events.jsonl, metrics.json) "
-                         "in the campaign directory; decisions are "
-                         "bit-identical with tracing on or off")
-    ap.add_argument("--trace-out", metavar="PATH",
-                    help="export the campaign directory's recorded "
-                         "events as Chrome-trace/Perfetto JSON, then exit")
-    unported = ap.add_argument_group(
-        "not ported yet (each raises NotImplementedError)")
-    for flag in FLEET_SWITCHES:
-        unported.add_argument(flag, action="store_true",
-                              help=f"fabric/intake ({SLICE_6})")
-    for flag in FLEET_VALUES:
-        unported.add_argument(flag, help=f"fabric/intake ({SLICE_6})")
+                    help="campaign/fabric mode: discard the cells' "
+                         "checkpoints, leases and intake submissions, "
+                         "re-tune (the trial history is kept)")
+    online = ap.add_argument_group("online scheduler (core/schedule.py)")
+    online.add_argument("--prioritize", default="arch",
+                        choices=["arch", "history"],
+                        help="cell scheduling order (core/schedule.py)")
+    online.add_argument("--add-cells",
+                        help="submit cells to the campaign directory's "
+                             "intake (a running campaign/fabric admits "
+                             "them live), then exit")
+    online.add_argument("--watch", action="store_true",
+                        help="fabric workers: keep re-scanning the "
+                             "intake when the board is drained instead "
+                             "of exiting (end with --stop)")
+    online.add_argument("--status", action="store_true",
+                        help="print the queue view (pending/claimed/"
+                             "done cells, intake, lease board), then "
+                             "exit")
+    online.add_argument("--stop", action="store_true",
+                        help="request watching workers to exit once "
+                             "every admitted cell is done, then exit")
+    fab = ap.add_argument_group("campaign fabric (core/fabric.py)")
+    fab.add_argument("--workers", type=int,
+                     help="fabric mode: spawn N local worker processes "
+                          "over the shared per-strategy directory")
+    fab.add_argument("--coordinate", action="store_true",
+                     help="fabric mode with the default worker count "
+                          "(2) — same as --workers 2")
+    fab.add_argument("--worker", action="store_true",
+                     help="join a shared directory as one fabric "
+                          "worker (start any number, on any host)")
+    fab.add_argument("--evaluator",
+                     help="module:factory dotted path for the trial "
+                          "evaluator (default: the measured dispatch "
+                          "stack on --device; tests swap in synthetic "
+                          "surfaces)")
+    fab.add_argument("--worker-ttl", type=float, default=30.0,
+                     help="lease TTL seconds: a lease whose heartbeat "
+                          "is older than this is recovered (default 30)")
+    fab.add_argument("--worker-id", help="explicit worker id")
+    fab.add_argument("--warm-start", action="store_true",
+                     help="seed fresh cells from the best configs of "
+                          "the nearest already-tuned cells in the "
+                          "trial history")
+    fab.add_argument("--ready-file",
+                     help="touch this file once initialized (benchmark "
+                          "start barrier)")
+    fab.add_argument("--go-file",
+                     help="wait for this file before claiming cells "
+                          "(benchmark start barrier)")
+    hard = ap.add_argument_group(
+        "trial hardening (core/executor.py + core/quarantine.py)")
+    hard.add_argument("--trial-timeout", type=float, default=None,
+                      metavar="SECONDS",
+                      help="per-trial evaluation deadline (default: none)")
+    hard.add_argument("--max-retries", type=int, default=0,
+                      help="re-evaluate transient failures up to N times "
+                           "(default 0)")
+    hard.add_argument("--strike-threshold", type=int, default=None,
+                      help="quarantine a config after this many strikes "
+                           "(default 3)")
+    meas = ap.add_argument_group("measured tier (core/measure.py)")
+    meas.add_argument("--measure-top-k", type=int, default=0, metavar="K",
+                      help="after each cell's walk, re-evaluate its "
+                           "top-K surviving configs and publish the "
+                           "measured winner (default 0: off)")
+    meas.add_argument("--measured-evaluator",
+                      help="module:factory dotted path for the "
+                           "measured-tier evaluator (default: reduced "
+                           "wall-clock proxy + kernel bench, behind "
+                           "the disk timing cache)")
+    serve = ap.add_argument_group("serving tuning loop (serving/)")
+    serve.add_argument("--slo-ttft", type=float, default=None,
+                       metavar="FACTOR",
+                       help="SLO guardrail for serve cells: abort any "
+                            "candidate whose TTFT or queue delay exceeds "
+                            "FACTOR x the incumbent's (default: off)")
+    serve.add_argument("--promote", action="store_true",
+                       help="publish each serve cell's surviving winner "
+                            "to the campaign directory's live-config "
+                            "board")
+    obs = ap.add_argument_group("observability (core/telemetry.py)")
+    obs.add_argument("--trace", action="store_true",
+                     help="record telemetry (events.jsonl, metrics.json) "
+                          "in the campaign directory; decisions are "
+                          "bit-identical with tracing on or off")
+    obs.add_argument("--trace-out", metavar="PATH",
+                     help="export the campaign directory's recorded "
+                          "events as Chrome-trace/Perfetto JSON, then "
+                          "exit")
+    obs.add_argument("--json", action="store_true",
+                     help="with --status: print the queue view plus "
+                          "live telemetry metrics as one JSON object")
     args = ap.parse_args(argv)
 
-    fleet = [flag for flag in FLEET_SWITCHES + FLEET_VALUES
-             if getattr(args, flag[2:].replace("-", "_"))]
-    if fleet:
-        raise NotImplementedError(
-            f"{', '.join(fleet)}: the fabric, worker and intake flags are "
-            f"not ported yet ({SLICE_6})")
-    if args.trace_out:
-        if args.cells or args.fresh or args.trace:
-            ap.error("--trace-out is a standalone export; drop "
-                     "--cells/--fresh/--trace or run it separately")
-        return run_trace_out(args)
     if args.sweep_knobs and args.strategy != "sensitivity":
         ap.error("--sweep-knobs only applies to --strategy sensitivity")
     if (args.budget is not None or args.seed is not None) \
             and args.strategy not in ("random", "model"):
-        ap.error("--budget/--seed only apply to --strategy random/model")
+        ap.error("--budget/--seed only apply to --strategy "
+                 "random/model")
     if (args.model_min_records is not None
-            or args.model_top_k is not None) and args.strategy != "model":
+            or args.model_top_k is not None) \
+            and args.strategy != "model":
         ap.error("--model-min-records/--model-top-k only apply to "
                  "--strategy model")
-    if args.measure_top_k < 0:
-        ap.error("--measure-top-k must be >= 0")
-    if args.slo_ttft is not None and args.slo_ttft <= 0:
-        ap.error("--slo-ttft is a multiplier over the incumbent's "
-                 "replay stats; it must be > 0 (e.g. 3.0)")
+    if args.add_cells or args.stop:
+        # standalone actions against a campaign directory: any other
+        # mode flag would be silently ignored, so reject the combination
+        # instead of letting the operator believe it took effect
+        ignored = [flag for flag, on in (
+            ("--arch", args.arch), ("--shape", args.shape),
+            ("--cells", args.cells), ("--all", args.all),
+            ("--fresh", args.fresh), ("--watch", args.watch),
+            ("--status", args.status), ("--worker", args.worker),
+            ("--workers", args.workers),
+            ("--coordinate", args.coordinate),
+            ("--warm-start", args.warm_start),
+            ("--trial-timeout", args.trial_timeout is not None),
+            ("--max-retries", bool(args.max_retries)),
+            ("--strike-threshold",
+             args.strike_threshold is not None),
+            ("--measure-top-k", bool(args.measure_top_k)),
+            ("--measured-evaluator",
+             bool(args.measured_evaluator)),
+            ("--slo-ttft", args.slo_ttft is not None),
+            ("--promote", args.promote),
+            ("--trace", args.trace),
+            ("--trace-out", bool(args.trace_out)),
+            ("--json", args.json)) if on]
+        if args.add_cells and args.stop:
+            ap.error("--add-cells and --stop are separate actions; "
+                     "run them as two invocations")
+        if ignored:
+            action = "--add-cells" if args.add_cells else "--stop"
+            ap.error(f"{action} is a standalone action; "
+                     f"{', '.join(ignored)} would be ignored — "
+                     "drop it or run it separately")
+        return run_add_cells(args) if args.add_cells else run_stop(args)
+    if args.json and not args.status:
+        ap.error("--json is the machine-readable form of --status; "
+                 "add --status or drop --json")
+    if args.trace_out:
+        # standalone export over an existing campaign directory: any
+        # tuning-mode flag would be silently ignored — reject it
+        ignored = [flag for flag, on in (
+            ("--arch", args.arch), ("--shape", args.shape),
+            ("--cells", args.cells), ("--all", args.all),
+            ("--fresh", args.fresh), ("--watch", args.watch),
+            ("--status", args.status), ("--worker", args.worker),
+            ("--workers", args.workers),
+            ("--coordinate", args.coordinate),
+            ("--trace", args.trace)) if on]
+        if ignored:
+            ap.error("--trace-out is a standalone export; "
+                     f"{', '.join(ignored)} would be ignored — "
+                     "drop it or run it separately")
+        return run_trace_out(args)
+    if args.status:
+        # read-only action: --cells/--all scope the view, but a fabric
+        # or fresh flag would be silently ignored — reject it
+        ignored = [flag for flag, on in (
+            ("--arch", args.arch), ("--shape", args.shape),
+            ("--fresh", args.fresh), ("--watch", args.watch),
+            ("--worker", args.worker), ("--workers", args.workers),
+            ("--coordinate", args.coordinate),
+            ("--warm-start", args.warm_start),
+            ("--trial-timeout", args.trial_timeout is not None),
+            ("--max-retries", bool(args.max_retries)),
+            ("--strike-threshold",
+             args.strike_threshold is not None),
+            ("--measure-top-k", bool(args.measure_top_k)),
+            ("--measured-evaluator",
+             bool(args.measured_evaluator)),
+            ("--slo-ttft", args.slo_ttft is not None),
+            ("--promote", args.promote),
+            ("--trace", args.trace)) if on]
+        if ignored:
+            ap.error("--status is a read-only action; "
+                     f"{', '.join(ignored)} would be ignored — "
+                     "drop it or run it separately")
     options = _strategy_options(
         args.strategy, args.sweep_knobs, args.budget, args.seed,
         model_min_records=args.model_min_records,
         model_top_k=args.model_top_k)
-    if not args.cells:
-        return _single_cell(ap, args, options)
-    from repro_torch.core.campaign import parse_cells
-    cells = parse_cells(args.cells, default_multi_pod=args.multi_pod)
-    reports, stats = tune_campaign(
-        cells, threshold=args.threshold, fresh=args.fresh,
-        checkpoint_dir=args.checkpoint_dir, strategy=args.strategy,
-        strategy_options=options, warm_start=args.warm_start,
-        prioritize=args.prioritize, trial_timeout_s=args.trial_timeout,
-        max_retries=args.max_retries,
-        strike_threshold=args.strike_threshold,
-        measure_top_k=args.measure_top_k, slo_ttft=args.slo_ttft,
-        promote=args.promote, trace=args.trace, device=args.device)
-    print(report.strategy_markdown(reports, queue=stats.get("queue")))
-    print(f"\n[{stats['strategy']}] {stats['cells']} cells in "
-          f"{stats['wall_s']}s ({stats['cells_per_hour']} cells/h; "
-          f"{stats['evaluated_trials']} trials evaluated, "
-          f"{stats['replayed_trials']} replayed from checkpoint)")
-    return 0
+    if args.measure_top_k < 0:
+        ap.error("--measure-top-k must be >= 0")
+    if args.measured_evaluator and not args.measure_top_k:
+        ap.error("--measured-evaluator requires --measure-top-k > 0")
+    fabric_mode = args.worker or args.coordinate or args.workers
+    if args.trace and not (args.all or args.cells or fabric_mode):
+        ap.error("--trace records telemetry into the campaign "
+                 "directory; it applies to campaign/fabric modes "
+                 "(--cells/--all/--worker/--workers)")
+    if args.slo_ttft is not None and args.slo_ttft <= 0:
+        ap.error("--slo-ttft is a multiplier over the incumbent's "
+                 "replay stats; it must be > 0 (e.g. 3.0)")
+    if args.slo_ttft is not None and args.evaluator:
+        ap.error("--evaluator replaces the dispatch stack that carries "
+                 "the SLO guard; drop --slo-ttft or arm the guard "
+                 "inside the custom evaluator factory")
+    if (args.slo_ttft is not None or args.promote) \
+            and not (args.all or args.cells or fabric_mode):
+        ap.error("--slo-ttft/--promote apply to campaign/fabric modes "
+                 "over serve:<arch>:<trace> cells")
+    if args.fresh and not (args.all or args.cells):
+        ap.error("--fresh only applies to campaign/fabric modes")
+    if args.worker and args.fresh:
+        ap.error("--fresh is a coordinator/campaign action; workers "
+                 "join shared state, they must not clear it")
+    if args.watch and not fabric_mode:
+        ap.error("--watch only applies to fabric modes (--worker / "
+                 "--workers / --coordinate)")
+    if fabric_mode and not (args.all or args.cells) \
+            and not (args.worker and args.watch):
+        ap.error("fabric modes need --cells or --all (a --watch "
+                 "--worker may start empty and live off the intake)")
+    if args.all or args.cells or (args.worker and args.watch) \
+            or args.status:
+        from repro_torch.core.campaign import enumerate_cells, parse_cells
+        if args.cells:
+            cells = parse_cells(args.cells,
+                                default_multi_pod=args.multi_pod)
+        elif args.all:
+            cells = enumerate_cells(meshes=(args.multi_pod,))
+        else:
+            cells = []
+        if args.status:
+            return run_status(args, cells)
+        if args.worker:
+            return run_worker(args, cells, options)
+        if args.coordinate or args.workers:
+            return run_fabric(args, cells, options)
+        reports, stats = tune_campaign(
+            cells, threshold=args.threshold, fresh=args.fresh,
+            checkpoint_dir=args.checkpoint_dir, strategy=args.strategy,
+            strategy_options=options, warm_start=args.warm_start,
+            prioritize=args.prioritize, trial_timeout_s=args.trial_timeout,
+            max_retries=args.max_retries,
+            strike_threshold=args.strike_threshold,
+            measure_top_k=args.measure_top_k,
+            measured_evaluator=_load_measured(args),
+            slo_ttft=args.slo_ttft, promote=args.promote,
+            trace=args.trace, device=args.device)
+        print(report.strategy_markdown(reports, queue=stats.get("queue")))
+        print(f"\n[{stats['strategy']}] {stats['cells']} cells in "
+              f"{stats['wall_s']}s ({stats['cells_per_hour']} cells/h; "
+              f"{stats['evaluated_trials']} trials evaluated, "
+              f"{stats['replayed_trials']} replayed from checkpoint)")
+        return 0
+    return _single_cell(ap, args, options)
 
 
 def _single_cell(ap, args, options) -> int:
     if not (args.arch and args.shape):
-        ap.error("need --arch and --shape, or --cells")
+        ap.error("need --arch and --shape, or --cells/--all")
     if args.measure_top_k:
-        ap.error("--measure-top-k applies to campaign mode (--cells); "
-                 "single-cell mode is already measured")
-    if args.trace:
-        ap.error("--trace records telemetry into the campaign directory; "
-                 "it applies to campaign mode (--cells)")
-    out_dir = pathlib.Path(args.checkpoint_dir) / "reports" \
-        if args.checkpoint_dir else None
+        ap.error("--measure-top-k applies to campaign/fabric modes "
+                 "(--cells/--all); single-cell mode is already measured")
     rep = tune_cell(args.arch, args.shape, args.multi_pod, args.threshold,
                     strategy=args.strategy, strategy_options=options,
-                    device=args.device, out_dir=out_dir)
+                    device=args.device, out_dir=_reports_dir(args))
     print(report.cell_markdown(rep))
     _print_cell_summary(rep)
     return 0

@@ -14,6 +14,7 @@ from benchmarks.fabric_surface import surface_cost
 
 import repro.core.campaign
 import repro.core.executor
+import repro.core.fabric
 import repro.core.history
 import repro.core.params
 import repro.core.quarantine
@@ -26,6 +27,7 @@ import repro.core.tree
 import repro.core.trial
 import repro_torch.core.campaign
 import repro_torch.core.executor
+import repro_torch.core.fabric
 import repro_torch.core.history
 import repro_torch.core.params
 import repro_torch.core.quarantine
@@ -37,9 +39,9 @@ import repro_torch.core.telemetry
 import repro_torch.core.tree
 import repro_torch.core.trial
 
-_MODULES = ("campaign", "executor", "history", "params", "quarantine",
-            "report", "schedule", "sensitivity", "strategy", "telemetry",
-            "tree", "trial")
+_MODULES = ("campaign", "executor", "fabric", "history", "params",
+            "quarantine", "report", "schedule", "sensitivity", "strategy",
+            "telemetry", "tree", "trial")
 
 
 def _pkg(root, surface):
@@ -60,8 +62,12 @@ PKGS = {"ref": _pkg(repro, surface_cost),
 def history_rows(path):
     """The rows of a ``history.jsonl`` without their wall-clock stamp,
     cell by cell in the order each cell appended them (how the cells'
-    rows interleave depends on which pool thread finishes first)."""
-    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    rows interleave depends on which pool thread finishes first).  Blank
+    lines are skipped, as ``TrialHistory.records`` skips them: one is
+    what the torn-tail heal of ``fsutil.append_jsonl`` leaves when an
+    appender reads the last byte of another's write in flight."""
+    rows = [json.loads(line) for line in path.read_text().splitlines()
+            if line.strip()]
     for r in rows:
         r.pop("ts")
     return sorted(rows, key=lambda r: r["cell"])

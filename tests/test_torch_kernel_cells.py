@@ -15,7 +15,6 @@ import repro_torch.core.kernel_cell as kc
 import repro_torch.core.measure as measure
 from _torch_surface import PKGS, port_surface
 from repro_torch.core import campaign, params, trial
-from repro_torch.launch import tune
 
 CELLS = [(k, s) for k in sorted(kc.KERNELS) for s in sorted(
     kc.KERNELS[k].shapes)]
@@ -235,10 +234,7 @@ def _step(arch, shape, mesh=None):
 @pytest.mark.parametrize("build, slice_", [
     (lambda: _step("smollm-135m", "train_4k", {"data": 16, "model": 16}),
      "slice 7"),
-    (lambda: trial.RooflineEvaluator(), "slice 8"),
-    (lambda: tune.main(["--device", "cpu", "--cells",
-                        "kernel:rmsnorm:tiny", "--workers", "2"]),
-     "slice 6")])
+    (lambda: trial.RooflineEvaluator(), "slice 8")])
 def test_unported_evaluators_raise_naming_their_slice(build, slice_,
                                                       monkeypatch, tmp_path):
     monkeypatch.setattr(measure, "TIMING_DIR", tmp_path)

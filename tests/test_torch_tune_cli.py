@@ -1,7 +1,8 @@
 """The port's tuning CLI, campaign mode, on the CPU: reports and the
 campaign summary are written, a re-run resumes from its checkpoints,
-telemetry is recorded with ``--trace``, no card means no run unless the
-CPU is asked for, and every part not ported yet raises naming its slice."""
+telemetry is recorded with ``--trace``, and no card means no run unless
+the CPU is asked for.  The fleet modes are held in
+``tests/test_torch_fabric.py``."""
 import json
 
 import pytest
@@ -139,20 +140,3 @@ def test_step_cells_raise_naming_slice_4(reduced_steps):
         rep = json.loads((ckpt / "reports" / f"{key}.json").read_text())
         assert 1 <= rep["n_trials"] <= 10
         assert not any(e["result"]["crashed"] for e in rep["log"])
-
-
-@pytest.mark.parametrize("flags", [
-    ["--all"], ["--workers", "2"], ["--worker"], ["--coordinate"],
-    ["--add-cells", "kernel:rmsnorm:tiny"], ["--status"], ["--stop"],
-    ["--watch"], ["--evaluator", "x:y"], ["--measured-evaluator", "x:y"],
-    ["--dir", "d"], ["--status", "--json"]])
-def test_fabric_flags_raise_naming_slice_6(flags):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tune.main(["--device", "cpu", "--cells", "kernel:rmsnorm:tiny"]
-                  + flags)
-
-
-def test_queue_status_raises_naming_slice_6(tmp_path):
-    from repro_torch.core import schedule
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        schedule.queue_status(tmp_path)
