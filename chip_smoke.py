@@ -25,6 +25,12 @@ agree_train (one f32 train step on the card against the CPU), then for
 each model serve, scheduler and launches (every counter set to 0 just
 before the path and read right after it; the paths of olmoe, xlstm and
 seamless also profile a prefill and decode steps, ``serve_profile``),
+then ``mesh`` (the sharded path at one NCCL rank in this process: a
+(1, 1) ``DeviceMesh``, smollm-135m at full width and depth through
+DTensors and ``local_map`` to the kernels, prefill, decode, a train step
+on the auto path, the gradient collectives and a checkpoint, each
+against the one-device path; ``{"mesh": ...}`` line; its own counters,
+``launches_by_path["mesh"]``),
 then two campaigns of the port's tuner
 (``repro_torch.launch.tune.tune_campaign``, strategy ``tree``, measured
 re-rank of the top 2, telemetry on), each a path of its own for the
@@ -40,8 +46,8 @@ then three more paths: ``train`` (``repro_torch.launch.train`` at full
 width and depth, a stop and a resume; it launches no kernel),
 ``train_families`` (for olmoe-1b-7b, llava-next-34b, zamba2-7b,
 xlstm-1.3b and seamless-m4t-medium at full width: one train step on the
-card against the CPU at a cut depth, then timed steps, the last two at
-full depth; no kernel) and ``tune_steps`` (single-cell mode on
+card against the CPU at a cut depth, then timed steps at a cut depth;
+no kernel) and ``tune_steps`` (single-cell mode on
 ``smollm-135m:decode_card``, ``olmoe-1b-7b:prefill_card`` and
 ``xlstm-1.3b:long_500k``, a campaign over smollm's ``prefill_card`` and
 ``train_card``).  Checkpoints, timing
@@ -1279,8 +1285,8 @@ def phase_agree_moe() -> None:
     def run(compute, kv, impl):
         routes = []
 
-        def recording(xt, router_w, c):
-            gv, gi, aux = route(xt, router_w, c)
+        def recording(xt, router_w, c, mean=None):
+            gv, gi, aux = route(xt, router_w, c, mean)
             gates = torch.softmax((xt @ router_w).float(), dim=-1)
             routes.append((gates, gi, len(routes) % cfg.n_layers))
             return gv, gi, aux
@@ -1679,8 +1685,10 @@ def phase_train(root: pathlib.Path) -> dict:
 # 16 layers, ~1.9e9 parameters; llava-next-34b 2 of 60 layers (d 7168,
 # 576 frontend tokens), ~2.0e9; zamba2-7b one group of two Mamba2
 # blocks, the shared block and a remainder block, as in
-# phase_agree_zamba; xlstm-1.3b (1.21e9) and seamless-m4t-medium
-# (0.88e9) at full depth.  olmoe's agreement runs at 1 layer (its CPU
+# phase_agree_zamba; xlstm-1.3b at 16 of 48 blocks (two groups of
+# seven mLSTM blocks and an sLSTM block: the cut that pays for the mesh
+# phase) and seamless-m4t-medium (0.88e9) at full depth.  olmoe's
+# agreement runs at 1 layer (its CPU
 # step took 38-48 s at 4, and the smoke is to end within 900 s); llava's
 # stays at 2 (at 1 its card and CPU steps differed past five times the
 # floor).  An agreement batch holds one
@@ -1692,12 +1700,13 @@ TRAIN_FAMILIES = (
      (2, 2048)),
     ("zamba2-7b", {"n_layers": 3, "attn_every": 2}, (1, 256),
      {"n_layers": 3, "attn_every": 2}, (4, 1024)),
-    # the timed steps at full depth; xlstm at 256 positions, one full
-    # chunk.  The agreement at one mLSTM and one sLSTM block: over a
-    # group of 8 the gradient norm is ~8e5 and one rounding unit moves it
-    # more than 100 %, so no bound is left there
-    ("xlstm-1.3b", {"n_layers": 2, "slstm_every": 2}, (1, 256), {},
-     (4, 256)),
+    # the timed steps: xlstm at a third of its depth and 256 positions,
+    # one full chunk; seamless at full depth.  The agreement at one mLSTM
+    # and one sLSTM block: over a group of 8 the gradient norm is ~8e5
+    # and one rounding unit moves it more than 100 %, so no bound is left
+    # there
+    ("xlstm-1.3b", {"n_layers": 2, "slstm_every": 2}, (1, 256),
+     {"n_layers": 16}, (4, 256)),
     ("seamless-m4t-medium", {"n_layers": 2, "enc_layers": 2}, (1, 256), {},
      (4, 1024)),
 )
@@ -1989,6 +1998,252 @@ def main_paths() -> list:
             phase_scheduler("seamless-m4t-medium", seamless_trace, 1088),
             phase_serve_profile("seamless-m4t-medium")]),
     ]
+
+
+# the mesh phase: smollm-135m at full width and depth, bf16, (B, S) and
+# decode steps; the train step at the same (B, S) in f32
+MESH_ARCH, MESH_BATCH, MESH_DECODE_STEPS = "smollm-135m", (4, 1024), 8
+
+
+def _host_ms(fn):
+    """(result, host ms of one call with a synchronize after it)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _twice_ms(fn):
+    """(result of the second call, [host ms of the first call, of the
+    second]): the first call pays one-time costs (DTensor's sharding
+    propagation is cached per operator and placements)."""
+    _, first = _host_ms(fn)
+    out, second = _host_ms(fn)
+    return out, [first, second]
+
+
+def phase_mesh(device: str = "cuda", cfg=None, batch=MESH_BATCH,
+               steps: int = MESH_DECODE_STEPS) -> dict:
+    """The sharded path at one rank: a process group of one (NCCL on the
+    card, through a ``FileStore`` in a temporary directory) and a (1, 1)
+    ``DeviceMesh`` ("data", "model") in this process, smollm-135m at
+    full width and depth.
+
+    (a) prefill at ``batch`` with ``ShardingRules(strategy="tp")`` and
+    DTensor parameters, the kernels reached through ``local_map``: logits
+    and cache against the one-device prefill, bf16's 2e-2; (b) ``steps``
+    decode steps the same way (the tokens the one-device path picks);
+    (c) one f32 train step on the auto path (DTensors;
+    ``stepfn.build_mesh_train_step``, which takes a mesh of one device
+    through it) against the one-device step: loss to 1e-5 and the
+    updated ``final_norm`` to 1e-4 relative, the bounds of
+    ``agree_train``; (d) ``reduce_grads`` and ``reduce_grads_int8_ef``
+    over the step's gradients on the group's collectives: f32 gives the
+    gradients times the scale bit for bit, bf16 (each leaf, fused, fsdp)
+    each gradient rounded through bf16, int8_ef the quantize/dequantize
+    round trip to one quantisation step and its residual bit for bit;
+    (e) the step's DTensor state saved and restored on one device, bit
+    for bit.  The launch counters are set to 0 just before the sharded
+    prefill and read after its decode steps (the one-device calls that
+    it is compared with run first).  Host ms of (a)-(c), each call's
+    first and warm time (the prefill and the train step called twice,
+    decode steps 2..n), beside the one-device ms of the same calls: the
+    cost of DTensor dispatch at one rank."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.params import default_config
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.optimizers import constant_schedule, make_optimizer
+    from repro_torch.runtime import gradsync, stepfn
+    from repro_torch.runtime.loops import tree_leaves, tree_map, \
+        tree_unflatten
+    from repro_torch.runtime.sharding import full_tree, shard_tree
+    cfg = cfg or get_config(MESH_ARCH)
+    B, S = batch
+    on_card = device == "cuda"
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [B, S],
+           "decode_steps": steps}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        init_distributed(device, store_path=pathlib.Path(tmp) / "store",
+                         rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device)
+            out["backend"] = dist.get_backend()
+            model = build_model(cfg)
+            rt = default_config(compute_dtype="bfloat16", attn_impl="pallas",
+                                shard_strategy="tp")
+            rules = stepfn.build_rules(mesh, cfg, rt)
+            master = model.init(0, device=device)
+            cast = model.cast_params(master, rt)
+            gen = torch.Generator(device=device).manual_seed(7)
+            tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                   device=device, dtype=torch.int32)
+            p_specs = stepfn._param_specs(model, rules)
+            dparams = shard_tree(cast, p_specs, rules)
+            dtok = shard_tree({"t": tokens}, {"t": rules.act_spec(
+                ("batch", None), tokens.shape)}, rules)["t"]
+            max_seq = S + steps
+            ms = {}
+            with torch.no_grad():
+                # the one-device calls first: they are the comparison
+                (lg0, c0), ms["prefill_one_device"] = _twice_ms(
+                    lambda: model.prefill_fn(cast, {"tokens": tokens}, rt,
+                                             None, max_seq=max_seq))
+                want_logits, want_k = [lg0], c0["layers"]["k"].clone()
+                feed, dec0 = [], []
+                nxt = lg0.argmax(-1).to(torch.int32)
+                for _ in range(steps):
+                    feed.append(nxt)
+                    (lg0, c0), t = _host_ms(
+                        lambda: model.decode_fn(cast, c0, nxt, rt, None))
+                    dec0.append(t)
+                    want_logits.append(lg0)
+                    nxt = lg0.argmax(-1).to(torch.int32)
+                del c0
+                ms["decode_one_device"] = [dec0[0], sum(dec0[1:]) /
+                                           (steps - 1)]
+                for mod in counters().values():
+                    mod.launches = 0
+                (lg1, c1), ms["prefill_mesh"] = _twice_ms(
+                    lambda: model.prefill_fn(dparams, {"tokens": dtok}, rt,
+                                             rules, max_seq=max_seq))
+                errs = {"prefill_logits": check(
+                    "mesh prefill logits", lg1.full_tensor(),
+                    want_logits[0], TOL[torch.bfloat16]),
+                    "prefill_cache_k": check(
+                        "mesh prefill cache",
+                        c1["layers"]["k"].full_tensor(), want_k,
+                        TOL[torch.bfloat16])}
+                dec1 = []
+                for i, nxt in enumerate(feed):
+                    (lg1, c1), t = _host_ms(
+                        lambda: model.decode_fn(dparams, c1, nxt, rt, rules))
+                    dec1.append(t)
+                    errs[f"decode_{i}"] = check(
+                        f"mesh decode {i}", lg1.full_tensor(),
+                        want_logits[i + 1], TOL[torch.bfloat16])
+                ms["decode_mesh"] = [dec1[0], sum(dec1[1:]) / (steps - 1)]
+                launches = {n: mod.launches
+                            for n, mod in counters().items()}
+                del c1, lg1, dparams, cast
+            per_prefill, per_step = launches_per_unit(cfg)
+            # the sharded prefill runs twice (first and warm)
+            want_launches = {k: 2 * per_prefill[k] + steps * per_step[k]
+                             for k in per_prefill}
+            if on_card and launches != want_launches:
+                raise AssertionError(f"mesh: launches {launches}, the path "
+                                     f"implies {want_launches}")
+            out.update(max_abs_err=errs, launches=launches,
+                       expected_launches=want_launches)
+
+            # (c) one f32 train step on the auto path against the step
+            rtt = default_config(shard_strategy="tp", remat_policy="none")
+            shape = ShapeConfig("mesh", S, B, "train")
+            opt = make_optimizer(cfg.optimizer, constant_schedule(1e-2),
+                                 eps=1e-3)
+            gen.manual_seed(8)
+            toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                                 device=device, dtype=torch.int32)
+            tb = {"tokens": toks[:, :-1].contiguous(),
+                  "labels": toks[:, 1:].contiguous()}
+            one = stepfn.build_train_step(cfg, shape, rtt, None, opt)
+            auto = stepfn.build_mesh_train_step(cfg, shape, rtt, mesh, opt)
+            fresh = lambda: tree_map(lambda t: t.clone(), master)
+            (p1, s1, m1), ms["train_one_device"] = _twice_ms(
+                lambda: one.fn(fresh(), opt.init(master), tb))
+            (p2, s2, m2), ms["train_mesh"] = _twice_ms(
+                lambda: auto.fn(fresh(), opt.init(master), tb))
+            fn1 = p1["final_norm"]
+            fn2 = p2["final_norm"].full_tensor()
+            train = {"loss": [float(m1["loss"]), float(m2["loss"])],
+                     "final_norm_rel": float(
+                         (fn2 - fn1).norm() / fn1.norm()),
+                     "explicit_comm": auto.notes["explicit_comm"]}
+            train["loss_rel"] = abs(train["loss"][1] - train["loss"][0]) \
+                / abs(train["loss"][0])
+            if not (train["loss_rel"] <= 1e-5
+                    and train["final_norm_rel"] <= 1e-4):
+                raise AssertionError(f"mesh train step: {train}")
+            out["train"] = train
+
+            # (d) the gradient collectives on the group, over the one-
+            # device step's gradients
+            _, grads = stepfn._local_grads(model, rtt, master, tb)
+            gtree = tree_unflatten(master, grads)
+            sync = {}
+            for name, kw, strategy in (
+                    ("float32", {}, "dp"),
+                    ("bfloat16", {"grad_comm_dtype": "bfloat16"}, "dp"),
+                    ("fused", {"grad_comm_dtype": "bfloat16",
+                               "fuse_grad_collectives": True}, "dp"),
+                    ("fsdp_bfloat16", {"grad_comm_dtype": "bfloat16"},
+                     "fsdp")):
+                r = default_config(shard_strategy=strategy, **kw)
+                specs = stepfn._param_specs(
+                    model, stepfn.build_rules(mesh, cfg, r))
+                red = gradsync.reduce_grads(gtree, specs, r, ("data",), 0.5,
+                                            mesh)
+                comm = torch.float32 if name == "float32" else torch.bfloat16
+                bad = [i for i, (a, g) in enumerate(zip(tree_leaves(red),
+                                                        grads))
+                       if not torch.equal(a, g.to(comm).float() * 0.5)]
+                if bad:
+                    raise AssertionError(f"mesh reduce_grads {name}: "
+                                         f"{len(bad)} leaves differ")
+                sync[name] = "equal"
+            flat = torch.cat([g.float().reshape(-1) for g in grads])
+            r = default_config(shard_strategy="dp", grad_comm_dtype="int8_ef",
+                               fuse_grad_collectives=True)
+            ef0 = torch.zeros((1, flat.numel()), device=flat.device)
+            red, ef1 = gradsync.reduce_grads_int8_ef(gtree, r, ("data",),
+                                                     {"data": 1}, ef0, 1.0,
+                                                     mesh)
+            q, scale, resid = gradsync.quantize_ef(flat, None)
+            got = torch.cat([g.reshape(-1) for g in tree_leaves(red)])
+            step_err = float((got - gradsync.dequantize_ef(q, scale))
+                             .abs().max())
+            if step_err > float(scale) or not torch.equal(ef1.reshape(-1),
+                                                          resid):
+                raise AssertionError(f"mesh int8_ef: {step_err} against a "
+                                     f"step of {float(scale)}")
+            sync["int8_ef"] = {"max_abs_err": step_err,
+                               "quantisation_step": float(scale),
+                               "residual": "equal"}
+            out["reduce_grads"] = sync
+            del grads, gtree, red
+
+            # (e) the DTensor state saved, restored on one device
+            state = {"params": p2, "opt": s2}
+            ckpt.save(pathlib.Path(tmp) / "ckpt", 1, state)
+            meta = stepfn._meta_params(model)
+            back = ckpt.restore(pathlib.Path(tmp) / "ckpt", 1,
+                                {"params": meta, "opt": opt.init(meta)},
+                                device=device)
+            full = full_tree(state)
+            bad = [i for i, (a, b) in enumerate(zip(tree_leaves(back),
+                                                    tree_leaves(full)))
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"mesh checkpoint: {len(bad)} leaves "
+                                     "differ")
+            out["checkpoint"] = {"leaves": len(tree_leaves(full)),
+                                 "equal": True}
+            out["host_ms"] = ms
+            # warm: the second prefill and train step, decode steps 2..n
+            out["dispatch_cost_ms"] = {
+                k: ms[f"{k}_mesh"][1] - ms[f"{k}_one_device"][1]
+                for k in ("prefill", "decode", "train")}
+        finally:
+            dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 TUNE_CAMPAIGNS = (
@@ -2708,6 +2963,12 @@ def main(argv=None) -> int:
         for mod in counters().values():
             mod.launches = 0
         by_path[arch] = phase_launches(arch, drive())
+    # the sharded path at one rank (its counters are set to 0 inside,
+    # after the one-device calls it is compared with)
+    mesh = phase_mesh()
+    by_path["mesh"] = mesh["launches"]
+    print(json.dumps({"mesh": mesh}), flush=True)
+    emit("mesh", seconds=round(time.time() - START, 1))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as root:
         for path, specs, expect in TUNE_CAMPAIGNS:
             for mod in counters().values():

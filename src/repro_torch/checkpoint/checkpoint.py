@@ -13,6 +13,14 @@ as its 16 bits, a uint16 ``.npy`` with ``"dtype": "bfloat16"`` in the
 manifest, and restored from them; no configuration the port trains has
 a bf16 leaf (master weights and optimizer state are f32).  ``restore``
 places every leaf on the device it is given (the device a run is on).
+
+On a mesh the layout stays mesh-agnostic: ``save`` gathers each DTensor
+leaf to a full tensor (a collective: every rank calls ``save``) and
+rank 0 writes it; ``restore`` takes new placements (``shardings``, a
+tree of ``(mesh, placements)`` as ``ShardingRules.sharding`` gives them)
+and hands each rank its block.  A checkpoint written on one mesh so
+restores on another mesh, or on one device, and the other way round
+(``ft/elastic.restore_resharded``).
 """
 from __future__ import annotations
 
@@ -32,20 +40,43 @@ from repro_torch.runtime.loops import tree_map
 BF16 = "bfloat16"
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+def _flatten(tree, prefix: str = "", leaf=lambda x: False
+             ) -> Dict[str, Any]:
     """Leaves by path key, as the reference's ``jax.tree_util`` paths
     spell them (dict keys, then sequence indices, joined by ``/``)."""
+    if leaf(tree):
+        return {prefix[:-1]: tree}
     if isinstance(tree, dict):
         out = {}
         for k in sorted(tree):
-            out.update(_flatten(tree[k], f"{prefix}{k}/"))
+            out.update(_flatten(tree[k], f"{prefix}{k}/", leaf))
         return out
     if isinstance(tree, (tuple, list)):
         out = {}
         for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}/"))
+            out.update(_flatten(v, f"{prefix}{i}/", leaf))
         return out
     return {prefix[:-1]: tree}
+
+
+def _is_dtensor(x) -> bool:
+    if not torch.is_tensor(x) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _writer() -> bool:
+    """Rank 0 writes (every process writes when there is no group)."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+def gather_full(tree):
+    """Every DTensor leaf gathered to a full tensor (a collective)."""
+    return tree_map(lambda x: x.full_tensor() if _is_dtensor(x) else x,
+                    tree)
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -68,6 +99,9 @@ def save(directory, step: int, tree, extra: Optional[Dict] = None
     directory = pathlib.Path(directory)
     tmp = directory / f".tmp_step_{step:08d}"
     final = directory / f"step_{step:08d}"
+    tree = gather_full(tree)
+    if not _writer():
+        return final
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
@@ -103,11 +137,14 @@ def _load(path: pathlib.Path, meta: Dict, device) -> torch.Tensor:
     return t.to(device)
 
 
-def restore(directory, step: int, target_tree, device=None) -> Any:
+def restore(directory, step: int, target_tree, device=None,
+            shardings=None) -> Any:
     """Restore into the structure of ``target_tree`` (shapes verified;
     its leaves need only a ``shape``).  Each leaf goes to ``device``,
     or, where that is None, to the device of the target's leaf (the CPU
-    for a leaf that is not a tensor)."""
+    for a leaf that is not a tensor).  With ``shardings`` (a tree like
+    the target's of ``(mesh, placements)``, or None for a leaf left
+    whole) each leaf becomes a DTensor on its placements."""
     d = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     flat_target = _flatten(target_tree)
@@ -124,7 +161,17 @@ def restore(directory, step: int, target_tree, device=None) -> Any:
         dev = device if device is not None else (
             want.device if torch.is_tensor(want) else "cpu")
         out[key] = _load(d / meta["file"], meta, dev)
+    if shardings is not None:
+        from repro_torch.runtime.sharding import from_full
+        for key, sh in _flatten(shardings, leaf=_is_sharding).items():
+            if sh is not None and torch.is_tensor(out.get(key)):
+                out[key] = from_full(out[key], *sh)
     return _rebuild(target_tree, out)
+
+
+def _is_sharding(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and \
+        hasattr(x[0], "mesh_dim_names")
 
 
 def _rebuild(target, out: Dict[str, Any], prefix: str = ""):
@@ -160,7 +207,8 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree, extra=None) -> cf.Future:
         # snapshot to the host NOW (a donating step updates these tensors
-        # in place at the next step)
+        # in place at the next step); DTensors are gathered on every rank
+        tree = gather_full(tree)
         host_tree = tree_map(
             lambda x: x.detach().to("cpu", copy=True)
             if torch.is_tensor(x) else x, tree)
@@ -172,6 +220,8 @@ class CheckpointManager:
 
     def _save_and_gc(self, step, host_tree, extra):
         path = save(self.directory, step, host_tree, extra)
+        if not _writer():
+            return path
         steps = sorted(int(p.name.split("_")[1])
                        for p in self.directory.glob("step_*"))
         for s in steps[:-self.keep]:

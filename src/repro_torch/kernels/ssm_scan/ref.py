@@ -6,16 +6,17 @@ tests):  h_t = exp(la_t) * h_{t-1} + dt_t * X_t (x) B_t ;  y_t = C_t . h_t.
 ``ssm_scan_chunked`` computes what the kernel computes, chunk by chunk:
 the within-chunk term, the carried-state term and the state update of
 the reference's ``_ssd_kernel``, all in f32 (or in the ``dtype`` asked
-for: f64 is the yardstick the kernel is held to on the card, since the
-host's f32 einsums can give two answers for one input, ROADMAP.md
-queue C) but for the cumulative sum of
-``la`` over a chunk, which is taken and differenced in f64 before each
-exp (as the kernel does: an f32 cumsum at |cum| ~ 10^2 is off by ~1e-5,
-and the exp of its differences carries that to every near-diagonal
-term).  ``ssm_scan_tiled`` runs it at the kernel's own chunk at any S:
-the sequence is padded to a whole number of chunks with rows that have
-dt = la = 0, which add nothing to the state, and the padded rows' outputs
-are dropped -- the ragged last chunk masked, as the kernel masks it.  The
+for: f64 is the yardstick the kernel is held to on the card) but for
+the cumulative sum of ``la`` over a chunk, which is taken and
+differenced in f64 (as the kernel does: an f32 cumsum at |cum| ~ 10^2
+is off by ~1e-5, and the exp of its differences carries that to every
+near-diagonal term), and each exp of it, taken in f64 and rounded
+(``_exp``: the host's f32 exp once gave two answers for one input,
+ROADMAP.md queue C).  ``ssm_scan_tiled`` runs it at the kernel's own
+chunk at any S: the sequence is padded to a whole number of chunks with
+rows that have dt = la = 0, which add nothing to the state, and the
+padded rows' outputs are dropped -- the ragged last chunk masked, as the
+kernel masks it.  The
 kernel's wrapper uses it for CPU tensors, and the kernel is held against
 it (and against ``ssm_scan_chunked`` at the reference's fitted chunk) on
 the card.
@@ -43,6 +44,15 @@ def ssm_scan_ref(X, Bm, Cm, dt, la, dtype=torch.float32):
     return torch.stack(ys, dim=1).to(X.dtype), h
 
 
+def _exp(x64, dtype):
+    """exp of an f64 tensor, taken in f64 and rounded to ``dtype``.  The
+    host's f32 ``torch.exp`` (MKL's vector exp, in blocks of 2048 on
+    several threads) has returned one block at ~1.5e-4 relative error on
+    the first call of a fresh process (ROADMAP.md queue C item 1); f64
+    keeps such an error below f32's rounding."""
+    return torch.exp(x64).to(dtype)
+
+
 def ssm_scan_chunked(X, Bm, Cm, dt, la, chunk: int, dtype=torch.float32):
     """The kernel's algorithm in ``dtype``; ``chunk`` must divide S (the
     wrapper fits it).  Same layouts and results as ``ssm_scan_ref``
@@ -63,19 +73,19 @@ def ssm_scan_chunked(X, Bm, Cm, dt, la, chunk: int, dtype=torch.float32):
         dtc = dtf[:, c0:c0 + Q]                         # (B,Q,H)
         cum = torch.cumsum(laf[:, c0:c0 + Q].double(), dim=1)   # (B,Q,H)
         # within-chunk: scores[t, j] = (C_t . B_j) exp(cum_t - cum_j) dt_j
-        diff = (cum[:, :, None, :] - cum[:, None, :, :]).to(dtype)  # (B,t,j,H)
-        decay = torch.where(tri[None, :, :, None], torch.exp(diff),
-                            torch.zeros_like(diff))
+        diff = cum[:, :, None, :] - cum[:, None, :, :]      # (B,t,j,H) f64
+        e = _exp(diff, dtype)
+        decay = torch.where(tri[None, :, :, None], e, torch.zeros_like(e))
         G = torch.einsum("btn,bjn->btj", Cc, Bc)
         scores = G[..., None] * decay * dtc[:, None, :, :]
         y = torch.einsum("btjh,bjhp->bthp", scores, Xc)
         # carried state: y_t += exp(cum_t) C_t . h
-        y = y + torch.exp(cum.to(dtype))[..., None] * torch.einsum(
+        y = y + _exp(cum, dtype)[..., None] * torch.einsum(
             "btn,bhpn->bthp", Cc, h)
         ys.append(y)
         # state update: h = exp(cum_last) h + sum_j w_j X_j (x) B_j
-        w = dtc * torch.exp((cum[:, -1:, :] - cum).to(dtype))     # (B,Q,H)
-        h = (torch.exp(cum[:, -1].to(dtype))[:, :, None, None] * h
+        w = dtc * _exp(cum[:, -1:, :] - cum, dtype)              # (B,Q,H)
+        h = (_exp(cum[:, -1], dtype)[:, :, None, None] * h
              + torch.einsum("bjh,bjhp,bjn->bhpn", w, Xc, Bc))
     return torch.cat(ys, dim=1).to(X.dtype), h
 

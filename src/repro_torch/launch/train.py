@@ -5,22 +5,33 @@ checkpoints, preemption-safe restart, straggler watchdog.
         --steps 4 --batch 4 --seq 32 --ckpt-interval 1 --log-interval 1
     PYTHONPATH=src python -m repro_torch.launch.train --seq 2048 --batch 4
 
-This is the PyTorch port of the reference's ``launch/train.py``, on one
-device: ``--device`` (default ``cuda``; with no card this raises unless
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --device cpu \
+        --reduced --steps 4 --batch 8 --seq 32 --shard-strategy fsdp
+
+This is the PyTorch port of the reference's ``launch/train.py``:
+``--device`` (default ``cuda``; with no card this raises unless
 ``--device cpu`` is given).  Without ``--reduced`` it trains the full
 config.  The step is ``runtime/stepfn.build_train_step`` (attention and
 norm on the eager ops: the kernels are forward-only).  Each logged step
 prints the loss, the global gradient norm, the learning rate and the
 step's milliseconds (host clock around the step and a synchronize).
 
+A plain single-process run trains on one device.  Under ``torchrun``
+with a world size above 1 each rank starts its process group (gloo on
+the CPU, NCCL on the card, from torchrun's environment) and the step
+runs on ``launch/mesh.make_host_mesh()`` with ``--shard-strategy``; the
+batch is split by rows, every rank calls the checkpoint (rank 0 writes
+it) and rank 0 prints.  ``--production-mesh`` builds the 16x16 mesh
+and refuses any world size but 256.
+
 Exit code 42 = preempted-after-checkpoint (relaunch with the same args;
 this script always resumes from the latest checkpoint in --ckpt-dir if
-one exists).  ``--production-mesh`` (a mesh of many devices) raises,
-naming the multi-device slice of ROADMAP.md.
+one exists).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import sys
 import time
@@ -34,9 +45,10 @@ from repro_torch.core.params import default_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.ft.preemption import PreemptionHandler, RESTART_EXIT_CODE
 from repro_torch.ft.straggler import StragglerDetector
+from repro_torch.launch import mesh as M
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.optim.optimizers import cosine_schedule, make_optimizer
-from repro_torch.runtime.stepfn import MULTI_DEVICE, build_train_step
+from repro_torch.runtime.stepfn import build_train_step
 
 CKPT_DIR = pathlib.Path(__file__).resolve().parents[3] / "results" / \
     "torch" / "train_ckpt"
@@ -71,11 +83,22 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            f"--production-mesh: training on a mesh of devices is not "
-            f"ported yet ({MULTI_DEVICE})")
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.production_mesh and world != 256:
+        raise SystemExit(
+            f"--production-mesh: the 16x16 mesh needs 256 ranks (torchrun "
+            f"across hosts, WORLD_SIZE=256); this launch has {world}")
+    mesh = None
+    if world > 1 or args.production_mesh:
+        M.init_distributed(dev.type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = (M.make_production_mesh(device_type=dev.type)
+                if args.production_mesh
+                else M.make_host_mesh(device_type=dev.type))
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     rt = default_config(compute_dtype=args.compute_dtype,
@@ -83,12 +106,15 @@ def main(argv=None) -> int:
                         remat_policy=args.remat,
                         microbatches=args.microbatches)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device: {name}  arch: {cfg.name}  "
-          f"params≈{cfg.param_count()/1e6:.1f}M", flush=True)
+    say(f"device: {name}  arch: {cfg.name}  "
+        f"params≈{cfg.param_count()/1e6:.1f}M", flush=True)
+    if mesh is not None:
+        say(f"mesh: {M.axis_sizes(mesh)}  strategy: {rt.shard_strategy}",
+            flush=True)
 
     optimizer = make_optimizer(cfg.optimizer,
                                cosine_schedule(args.lr, 10, args.steps))
-    bundle = build_train_step(cfg, shape, rt, None, optimizer)
+    bundle = build_train_step(cfg, shape, rt, mesh, optimizer)
     model = build_model(cfg)
 
     pre = PreemptionHandler().install()
@@ -97,7 +123,7 @@ def main(argv=None) -> int:
     try:
         start = mgr.latest_step()
         if start is not None:
-            print(f"resuming from step {start}", flush=True)
+            say(f"resuming from step {start}", flush=True)
             target = {"params": bundle.args[0], "opt": bundle.args[1]}
             state, _ = mgr.restore_latest(target, device=dev)
             params, opt_state = state["params"], state["opt"]
@@ -107,7 +133,7 @@ def main(argv=None) -> int:
             opt_state = optimizer.init(params)
             start = 0
 
-        data = SyntheticLM(cfg, shape, rt, dev, seed=args.seed)
+        data = SyntheticLM(cfg, shape, rt, dev, seed=args.seed, mesh=mesh)
         host = "host0"
         t_first = time.time()
         for step in range(start, args.steps):
@@ -119,20 +145,19 @@ def main(argv=None) -> int:
             dt_step = time.time() - t0
             watchdog.heartbeat(host, step, dt_step)
             if step == start:
-                print(f"first step (incl. allocation): "
-                      f"{time.time()-t_first:.1f}s", flush=True)
+                say(f"first step (incl. allocation): "
+                    f"{time.time()-t_first:.1f}s", flush=True)
             if step % args.log_interval == 0 or step == args.steps - 1:
-                print(f"step {step:5d} loss {float(metrics['loss']):8.4f} "
+                say(f"step {step:5d} loss {float(metrics['loss']):8.4f} "
                       f"gnorm {float(metrics['grad_norm']):8.3f} "
                       f"lr {float(metrics['lr']):.2e} {dt_step*1e3:7.1f}ms",
                       flush=True)
             if watchdog.check():
-                print(f"stragglers: {watchdog.flagged}", flush=True)
+                say(f"stragglers: {watchdog.flagged}", flush=True)
             mgr.maybe_save(step, {"params": params, "opt": opt_state},
                            extra={"step": step})
             if pre.requested():
-                print("preemption requested -> checkpoint + exit",
-                      flush=True)
+                say("preemption requested -> checkpoint + exit", flush=True)
                 mgr.maybe_save(step, {"params": params, "opt": opt_state},
                                extra={"step": step}, force=True)
                 mgr.wait()
@@ -143,7 +168,9 @@ def main(argv=None) -> int:
         mgr.wait()
     finally:
         pre.uninstall()
-    print("done.", flush=True)
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+    say("done.", flush=True)
     return 0
 
 

@@ -60,8 +60,9 @@ def encode(p, frames, cfg, rt: TunableConfig, rules):
     Each layer runs under the remat policy, the residual between layers
     carried in ``remat.carry_dtype``, as in the reference (in prefill
     too)."""
-    L.require_no_rules(rules)
     h = L.cast(frames, rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
 
@@ -101,6 +102,8 @@ def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy of the decoder -> (loss, {})."""
     enc_out = encode(p, batch["frames"], cfg, rt, rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     positions = _positions(h)
 
     def body(x, bp):
@@ -148,6 +151,8 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     once inside the block."""
     enc_out = encode(p, batch["frames"], cfg, rt, rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
     positions = _positions(h)
 
@@ -188,7 +193,6 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     ``rt.donate_buffers`` keeps the meaning ``transformer.decode_fn``
     gives it for the self cache (in place when true, on a copy when
     false); the cross cache is only read."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], tokens, rt)
     pos = int(cache["pos"])
     self_kv = cache["self"]

@@ -97,7 +97,8 @@ def ssd_chunked(X, Bm, Cm, dt, loga, chunk: int, h0=None):
     # before the exp, so those entries are 0 as in the reference and the
     # gradient there is 0 (exp, then a mask, would give 0 * inf = NaN)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=X.device))
+    tri = L.replicated_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                                  device=X.device)), diff)
     Lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
                                       float("-inf")))
     G = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)         # shared across heads
@@ -109,7 +110,8 @@ def ssd_chunked(X, Bm, Cm, dt, loga, chunk: int, h0=None):
                       Xc.to(f32), Bc)
     a_chunk = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
     # sequential cross-chunk state scan
-    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=X.device) \
+    h = L.replicated_like(torch.zeros((Bsz, H, P, N), dtype=f32,
+                                      device=X.device), Sc) \
         if h0 is None else h0
     y_inter = []
     for c in range(nc):
@@ -125,7 +127,6 @@ def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
     """Full Mamba2 block (prefill).  x: (B,S,d) -> (B,S,d).
 
     want_state=True additionally returns the decode cache entry."""
-    L.require_no_rules(rules)
     B, S, d = x.shape
     d_in = cfg.ssm_expand * d
     H = d_in // cfg.ssm_head_dim
@@ -134,6 +135,8 @@ def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
     xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt)
     xin, conv_state = _causal_conv(xin, L.cast(p["conv"], rt))
     xin = F.silu(xin)
+    if rules is not None:
+        xin = rules.constrain(xin, "batch", None, "ssm_inner")
     X = xin.reshape(B, S, H, P)
     if rt.attn_impl == "pallas":
         from repro_torch.kernels.ssm_scan import ops as ssm_ops
@@ -144,6 +147,8 @@ def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
     Y = Y + p["D"].to(Y.dtype)[None, None, :, None] * X
     y = Y.reshape(B, S, d_in)
     y = L.rmsnorm(y * F.silu(z), p["gln"], rt, cfg.norm_eps)
+    if rules is not None:
+        y = rules.constrain(y, "batch", None, "ssm_inner")
     out = x + y @ L.cast(p["wo"], rt)
     if want_state:
         return out, {"ssm": h_final, "conv": conv_state.float()}
@@ -167,7 +172,6 @@ def mamba_cache_shapes(cfg, batch: int, layers: int):
 def mamba_decode_block(p, x, layer_cache, cfg, rt: TunableConfig, rules):
     """One-token recurrent update.  x: (B,1,d).  Returns (out, new state);
     the given state is not modified."""
-    L.require_no_rules(rules)
     B, _, d = x.shape
     d_in = cfg.ssm_expand * d
     H = d_in // cfg.ssm_head_dim
@@ -186,5 +190,7 @@ def mamba_decode_block(p, x, layer_cache, cfg, rt: TunableConfig, rules):
     Y = Y + p["D"].to(Y.dtype)[None, :, None] * X
     y = Y.reshape(B, 1, d_in).to(x.dtype)
     y = L.rmsnorm(y * F.silu(z), p["gln"], rt, cfg.norm_eps)
+    if rules is not None:
+        y = rules.constrain(y, "batch", None, "ssm_inner")
     out = x + y @ L.cast(p["wo"], rt)
     return out, {"ssm": hs, "conv": conv_state.float()}

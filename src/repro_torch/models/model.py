@@ -8,8 +8,9 @@ workload cell's inputs.  Every family of the reference is ported:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -69,18 +70,23 @@ class Model:
         """Matrices cast to the compute dtype once (see L.cast_params)."""
         return L.cast_params(params, self.spec(), rt)
 
-    # ---- steps
+    # ---- steps (with ``rules`` the tensors are DTensors on its mesh)
     def loss_fn(self, params, batch, rt: TunableConfig, rules=None):
-        return self.mod.loss_fn(params, batch, self.cfg, rt, rules)
+        with _sharded(rules):
+            return self.mod.loss_fn(params, batch, self.cfg, rt, rules)
 
     def prefill_fn(self, params, batch, rt: TunableConfig, rules=None,
                    max_seq: Optional[int] = None):
         ms = max_seq or batch["tokens"].shape[1]
-        return self.mod.prefill_fn(params, batch, self.cfg, rt, rules, ms)
+        with _sharded(rules):
+            return self.mod.prefill_fn(params, batch, self.cfg, rt, rules,
+                                       ms)
 
     def decode_fn(self, params, cache, tokens, rt: TunableConfig,
                   rules=None):
-        return self.mod.decode_fn(params, cache, tokens, self.cfg, rt, rules)
+        with _sharded(rules):
+            return self.mod.decode_fn(params, cache, tokens, self.cfg, rt,
+                                      rules)
 
     # ---- caches
     def cache_shapes(self, batch: int, max_seq: int, rt: TunableConfig):
@@ -90,6 +96,16 @@ class Model:
                    device="cuda"):
         return self.mod.init_cache(self.cfg, batch, max_seq, rt,
                                    resolve_device(device))
+
+
+def _sharded(rules):
+    """Under sharding rules, a plain tensor the model makes on the way
+    (positions, masks) meets DTensors as a replicated one, as a constant
+    does inside the reference's jit."""
+    if rules is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -142,4 +158,16 @@ def synth_inputs(cfg: ArchConfig, shape: ShapeConfig, rt: TunableConfig,
             out[name] = torch.randint(0, cfg.vocab, s.shape,
                                       generator=generator,
                                       device=generator.device, dtype=s.dtype)
+    return out
+
+
+def batch_logical(cfg: ArchConfig, shape: ShapeConfig,
+                  rt: TunableConfig) -> Dict[str, Tuple]:
+    """Logical axis names for every input (the batch's shardings)."""
+    out = {}
+    for name in input_specs(cfg, shape, rt):
+        if name in ("frontend_embeds", "frames"):
+            out[name] = ("batch", None, None)
+        else:
+            out[name] = ("batch", None)
     return out

@@ -59,15 +59,22 @@ def _block(bp, x, positions, cfg, rt: TunableConfig, rules):
                               positions=positions)
     h = L.rmsnorm(x, bp["ln2"], rt, cfg.norm_eps)
     y, aux = _ffn(bp, h, cfg, rt, rules)
-    return x + y, aux
+    x = x + y
+    if rules is not None:
+        # sequence parallelism (beyond-paper): between blocks the residual
+        # is seq-sharded over the model axis
+        x = rules.constrain(x, "batch",
+                            "seq_model" if rt.seq_parallel else None, None)
+    return x, aux
 
 
 def embed_inputs(p, batch, cfg, rt: TunableConfig, rules):
     """tokens (+ optional precomputed frontend embeddings) -> (B,S,d)."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
     if "frontend_embeds" in batch:  # vlm stub: prepend patch embeds
         h = torch.cat([L.cast(batch["frontend_embeds"], rt), h], dim=1)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     return h
 
 
@@ -123,6 +130,15 @@ def cache_shapes(cfg, batch: int, max_seq: int, rt: TunableConfig):
             {"layers": lg, "pos": ()})
 
 
+def _constrain_cache(layers, cfg, rt, rules):
+    """The KV cache on its logical placements (K, V and their scales
+    alike: each rank writes and reads the same block of each)."""
+    k = layers["k"]
+    _, lg = L.attn_cache_shapes(cfg, k.shape[1], k.shape[2], rt,
+                                layers=k.shape[0])
+    return {n: rules.constrain(t, *lg[n]) for n, t in layers.items()}
+
+
 def init_cache(cfg, batch: int, max_seq: int, rt: TunableConfig,
                device="cuda"):
     shp, _ = cache_shapes(cfg, batch, max_seq, rt)
@@ -141,8 +157,8 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
         x = remat.from_carry(x, rt)
         hn = L.rmsnorm(x, bp["ln1"], rt, cfg.norm_eps)
         # k/v recomputed once for cache storage (cheap vs attention itself)
-        k = torch.einsum("bsd,dhk->bshk", hn, L.cast(bp["attn"]["wk"], rt))
-        v = torch.einsum("bsd,dhk->bshk", hn, L.cast(bp["attn"]["wv"], rt))
+        k = L.heads_in(hn, L.cast(bp["attn"]["wk"], rt))
+        v = L.heads_in(hn, L.cast(bp["attn"]["wv"], rt))
         k = L.rope(k, positions, cfg.rope_theta)
         x, _ = _block(bp, x, positions, cfg, rt, rules)
         kq, ks = L.quantize_kv(k, rt.kv_cache_dtype)
@@ -164,6 +180,8 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     if len(extras) == 4:
         cache["k_scale"] = pad_seq(extras[2])
         cache["v_scale"] = pad_seq(extras[3])
+    if rules is not None:
+        cache = _constrain_cache(cache, cfg, rt, rules)
     return logits, {"layers": cache, "pos": S}
 
 
@@ -178,6 +196,8 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     h = L.embed(p["embed"], tokens, rt)
     pos = int(cache["pos"])
     layers = cache["layers"]
+    if rules is not None:
+        layers = _constrain_cache(layers, cfg, rt, rules)
     if not rt.donate_buffers:
         layers = {k: t.clone() for k, t in layers.items()}
 

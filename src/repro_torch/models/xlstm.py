@@ -65,7 +65,8 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
     # as in the reference and their gradient is 0 (the reference takes
     # the exp first and masks after: 0 * inf = NaN in its gradient)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    tri = L.replicated_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                                  device=q.device)), diff)
     Lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
                                       float("-inf")))
     G = torch.einsum("bcqhn,bckhn->bcqkh", qc, kc)
@@ -79,8 +80,10 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
     a_chunk = torch.exp(cum[:, :, -1, :])                 # (B,nc,H)
     # the reference's inter-chunk scan, a loop over the chunks
     if state is None:
-        h = torch.zeros((Bsz, H, hd, hd), dtype=f32, device=q.device)
-        n = torch.zeros((Bsz, H, hd), dtype=f32, device=q.device)
+        h = L.replicated_like(torch.zeros((Bsz, H, hd, hd), dtype=f32,
+                                          device=q.device), Sc)
+        n = L.replicated_like(torch.zeros((Bsz, H, hd), dtype=f32,
+                                          device=q.device), Sc)
     else:
         h, n = state
     y_inter, nn_inter = [], []
@@ -102,15 +105,16 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
 
 def mlstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
                 state=None, decode=False):
-    L.require_no_rules(rules)
     B, S, d = x.shape
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, L.cast(p["wq"], rt)) \
         / (cfg.hd ** 0.5)
     k = torch.einsum("bsd,dhk->bshk", h, L.cast(p["wk"], rt))
     v = torch.einsum("bsd,dhk->bshk", h, L.cast(p["wv"], rt))
+    if rules is not None:
+        v = rules.constrain(v, "batch", None, None, "ssm_inner")
     ig = torch.sigmoid((h @ L.cast(p["wi"], rt)).float())
-    lf = F.logsigmoid((h @ L.cast(p["wf"], rt)).float())
+    lf = _logsigmoid((h @ L.cast(p["wf"], rt)).float())
     og = torch.sigmoid(h @ L.cast(p["wog"], rt))
     if decode:
         hs, ns = state
@@ -157,7 +161,7 @@ def _slstm_step(p, carry, zi, zf, zz, zo):
     zf = zf + h * p["rf"]
     zz = torch.tanh(zz + h * p["rz"])
     zo = torch.sigmoid(zo + h * p["ro"])
-    lf = F.logsigmoid(zf)
+    lf = _logsigmoid(zf)
     m_new = torch.maximum(lf + m, zi)
     keep = torch.exp(lf + m - m_new)
     write = torch.exp(zi - m_new)
@@ -165,6 +169,12 @@ def _slstm_step(p, carry, zi, zf, zz, zo):
     n = keep * n + write
     h = zo * c / torch.clamp(n, min=1.0)
     return (c, n, m_new, h)
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor elementwise on each rank's block
+    (DTensor has no sharding rule for its backward)."""
+    return L.sharded_kernel(F.logsigmoid, 0, x)
 
 
 def init_slstm_state(B: int, d: int, device):
@@ -179,7 +189,6 @@ def slstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
                 state=None, decode=False):
     """The sLSTM block.  Prefill is a loop over S of ``_slstm_step`` (the
     reference's ``lax.scan``), eager: about thirty small ops a token."""
-    L.require_no_rules(rules)
     B, S, d = x.shape
     hn = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
     zi = (hn @ L.cast(p["wi"], rt)).float()
@@ -188,7 +197,8 @@ def slstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
     zo = (hn @ L.cast(p["wog"], rt)).float()
     pf = {k2: p[k2].float() for k2 in ("ri", "rf", "rz", "ro")}
     if state is None:
-        state = init_slstm_state(B, d, x.device)
+        state = tuple(L.replicated_like(t, zi)
+                      for t in init_slstm_state(B, d, x.device))
     if decode:
         new_state = _slstm_step(pf, state, zi[:, 0], zf[:, 0], zz[:, 0],
                                 zo[:, 0])
@@ -248,8 +258,9 @@ def forward(p, h, cfg, rt: TunableConfig, rules):
 
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy -> (loss, {})."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     h = forward(p, h, cfg, rt, rules)
     logits = L.unembed(p["embed"], h, cfg, rt, rules)
     return L.xent_loss(logits, batch["labels"], cfg), {}
@@ -287,8 +298,9 @@ def init_cache(cfg, batch: int, max_seq: int, rt: TunableConfig,
 def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     """Run the full prompt, build every block's state, return last-token
     logits."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
 
     def inner(xc, mpp):
         return mlstm_block(mpp, xc, cfg, rt, rules, want_state=True)
@@ -316,7 +328,6 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     gives it: when true the given state tensors are updated in place and
     returned; when false the step works on a copy and the given cache is
     left as it was.  The results are the same either way."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], tokens, rt)
     new = {"m_h": cache["m_h"], "m_n": cache["m_n"], "s": tuple(cache["s"])}
     if not rt.donate_buffers:

@@ -88,8 +88,9 @@ def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy -> (loss, {}).  Under the train step
     (eager ops, ``attn_impl="xla"``) the Mamba2 scan is ``ssd_chunked``;
     the kernels are forward-only."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     h = forward(p, h, positions, cfg, rt, rules)
@@ -130,8 +131,9 @@ def init_cache(cfg, batch: int, max_seq: int, rt: TunableConfig,
 def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     """Run the full prompt, build the SSM/conv states and the KV cache,
     return last-token logits."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], batch["tokens"], rt)
+    if rules is not None:
+        h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     sp = p["shared"]
@@ -180,7 +182,6 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     caller's cache is consumed, as a donated buffer is); when false the
     step works on a copy and the given cache is left as it was.  The
     results are the same either way."""
-    L.require_no_rules(rules)
     h = L.embed(p["embed"], tokens, rt)
     pos = int(cache["pos"])
     parts = ("groups", "kv", "rem")

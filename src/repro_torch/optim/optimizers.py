@@ -9,6 +9,13 @@ state is a tree of tensors with the reference's leaf layout
 (``{"mu", "nu", "step"}`` for AdamW, ``{"fac", "step"}`` for Adafactor),
 so a checkpoint of it carries the reference's keys.
 
+``state_specs`` gives the state's sharding specs from the parameters'
+(the reference's): the moments take their parameter's spec, Adafactor's
+factored moments its spec minus the reduced dim.  On a mesh the state
+and the gradients are DTensors and ``update`` runs on them as it is:
+the global norm of the clip and Adafactor's row and column means are
+global reductions, so they stay global with no code of their own.
+
 ``update`` is functional by default: it returns new parameter and state
 trees and leaves its inputs as they were.  With ``inplace=True`` (the
 train step when it is asked to donate its buffers, runtime/stepfn.py)
@@ -33,6 +40,8 @@ class Optimizer(NamedTuple):
     # (grads, state, params, inplace=False)
     #   -> (new_params, new_state, metrics)
     update: Callable[..., Tuple[Any, Any, Dict]]
+    # (param_specs, param_shapes) -> the state's specs (sharding rules)
+    state_specs: Optional[Callable[..., Any]] = None
 
 
 def _global_norm(tree) -> torch.Tensor:
@@ -137,7 +146,10 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95,
         return (new_p, {"mu": mu, "nu": nu, "step": step},
                 {"grad_norm": gn, "lr": lr_t})
 
-    return Optimizer(init, update)
+    def state_specs(param_specs, param_shapes=None):
+        return {"mu": param_specs, "nu": param_specs, "step": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ------------------------------------------------------------ adafactor
@@ -145,7 +157,7 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
               weight_decay: float = 0.0, min_dim: int = 64) -> Optimizer:
     """Factored second moments over the last two dims of big matrices."""
     def _factored(p):
-        return p.ndim >= 2 and p.shape[-1] >= min_dim \
+        return len(p.shape) >= 2 and p.shape[-1] >= min_dim \
             and p.shape[-2] >= min_dim
 
     def init(params):
@@ -191,7 +203,17 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
         return (new_p, {"fac": new_fac, "step": step},
                 {"grad_norm": _global_norm(grads), "lr": lr_t})
 
-    return Optimizer(init, update)
+    def state_specs(param_specs, param_shapes):
+        def mk(spec, shp):
+            spec = tuple(spec) + (None,) * (len(shp.shape) - len(spec))
+            if _factored(shp):
+                # vr drops the last dim, vc drops the second-to-last
+                return {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
+            return {"v": spec}
+        return {"fac": tree_map2(mk, param_specs, param_shapes),
+                "step": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def make_optimizer(name: str, lr: Callable = None, **kw) -> Optimizer:

@@ -109,9 +109,12 @@ def test_preemption_exits_42_after_checkpoint_and_resumes(tmp_path,
 
 
 def test_production_mesh_raises_naming_multi_device(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """--production-mesh builds the 16x16 mesh: a launch without its 256
+    ranks is refused, saying so, before anything starts."""
+    with pytest.raises(SystemExit, match="256 ranks"):
         train.main(["--production-mesh", "--ckpt-dir", str(tmp_path)]
                    + ARGS)
+    assert not (tmp_path / "step_00000000").exists()
 
 
 def test_no_card_raises_without_device_cpu(tmp_path, monkeypatch):

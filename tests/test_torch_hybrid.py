@@ -251,8 +251,9 @@ def test_forward_carries_the_residual_in_the_save_dtype(save):
 
 def test_loss_fn_names_the_training_queue():
     """The hybrid loss is ported (tests/test_torch_hybrid_train.py holds
-    it against the reference); what it cannot do yet, a sharded loss,
-    raises naming its queue."""
+    it against the reference; on a mesh, tests/test_torch_spmd_families.py);
+    what the hybrid family cannot do yet, serving on a mesh of several
+    devices, raises naming its queue."""
     _, tcfg = cfgs("reduced")
     _, tp = weights("reduced")
     toks = torch.zeros((1, 9), dtype=torch.int32)
@@ -260,5 +261,11 @@ def test_loss_fn_names_the_training_queue():
     with torch.no_grad():
         loss, parts = build_model(tcfg).loss_fn(tp, batch, default_config())
     assert parts == {} and bool(torch.isfinite(loss))
+    import types
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import stepfn
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(4, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        build_model(tcfg).loss_fn(tp, batch, default_config(), object())
+        stepfn.build_prefill_step(tcfg, ShapeConfig("p", 8, 1, "prefill"),
+                                  default_config(), mesh)

@@ -233,7 +233,7 @@ def _step(arch, shape, mesh=None):
 
 @pytest.mark.parametrize("build, slice_", [
     (lambda: _step("smollm-135m", "train_4k", {"data": 16, "model": 16}),
-     "slice 7"),
+     "slice 9"),
     (lambda: trial.RooflineEvaluator(), "slice 8")])
 def test_unported_evaluators_raise_naming_their_slice(build, slice_,
                                                       monkeypatch, tmp_path):

@@ -359,10 +359,25 @@ def test_full_configs_build_and_train(arch):
 
 
 def test_expert_parallel_paths_raise_naming_their_slice():
+    """The expert-parallel paths are ported (slice 7; on gloo ranks in
+    tests/test_torch_spmd_families.py), chosen where the reference
+    chooses them; what they still cannot do, the gradient of
+    ep_gather's combine, raises naming its slice."""
+    from repro.runtime.sharding import ShardingRules as JRules
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.runtime.sharding import ShardingRules
+    from test_sharding_rules import fake_mesh
     cfg = get_reduced("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        moe.moe_mlp({}, torch.zeros(1, 1, cfg.d_model), cfg,
-                    default_config(), object())
+    for shape in ((1, 1), (2, 4), (8, 1), (1, 8), (2, 3)):
+        axes = ("data", "model")
+        t = ShardingRules(AbstractMesh(shape, axes), "tp")
+        j = JRules(mesh=fake_mesh(shape, axes), strategy="tp")
+        for S in (1, 6, 32):
+            assert moe._ep_paths_applicable(cfg, t, S) == \
+                jmoe._ep_paths_applicable(cfg, j, S)
+    assert moe._ep_paths_applicable(cfg, None, 32) is None
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        moe._GatherNoGrad.backward(None, torch.zeros(2))
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])

@@ -114,22 +114,61 @@ print("imported", len(mods))
 
 
 def test_unported_parts_raise():
+    """Since slice 7 (multi-device) the model functions take sharding
+    rules: the refusals are gone.  What is still not ported raises,
+    naming its slice: a step for a mesh that no process holds (the dry
+    run, slice 9)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.params import default_config
+    from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models.model import build_model
-    from repro_torch.models import layers, moe, zamba
+    from repro_torch.models import layers, moe
+    from repro_torch.runtime import stepfn
+    from repro_torch.runtime.sharding import ShardingRules
     # every family builds (the ssm and encdec families since slice 5b)
     for arch in ("xlstm-1.3b", "seamless-m4t-medium"):
         build_model(port_configs.get_reduced(arch))
-    # sharding rules are the multi-device slice's
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention_block(None, None, cfg=None, rt=None,
-                               rules=object(), positions=None,
-                               kv_x=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_mlp(None, None, None, None, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zamba.loss_fn(None, None, None, None, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.require_no_rules(object())
+    assert not hasattr(layers, "require_no_rules")
+    assert not hasattr(stepfn, "require_one_device")
+    cfg = port_configs.get_reduced("olmoe-1b-7b")
+    # the expert-parallel paths where the reference takes them
+    for shape, S, path in (((1, 1), 32, None), ((2, 4), 32, "ep_alltoall"),
+                           ((2, 4), 1, "ep_gather"), ((8, 1), 32, None)):
+        rules = ShardingRules(AbstractMesh(shape, ("data", "model")), "tp")
+        assert moe._ep_paths_applicable(cfg, rules, S) == path
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        stepfn.build_step(cfg, ShapeConfig("t", 64, 8, "train"),
+                          default_config(), {"data": 4, "model": 2})
+    # a mesh of one device is the one-device step, with its notes
+    bundle = stepfn.build_step(cfg, ShapeConfig("t", 64, 8, "train"),
+                               default_config(), AbstractMesh((1, 1), (
+                                   "data", "model")))
+    assert bundle.rules is None and "one_device_no_ops" in bundle.notes
+
+
+def test_multi_device_modules_import_without_jax_or_reference():
+    """The multi-device modules in a fresh interpreter: neither jax nor
+    the reference package is loaded, and importing them starts no
+    process group."""
+    code = r"""
+import importlib, pathlib, sys
+sys.path[:0] = [str(pathlib.Path(sys.argv[1]) / "src")]
+for m in ("repro_torch.launch.mesh", "repro_torch.runtime.sharding",
+          "repro_torch.runtime.gradsync", "repro_torch.ft.elastic"):
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+import torch.distributed as dist
+assert not dist.is_initialized()
+print("clean")
+"""
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    done = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+    assert "clean" in done.stdout
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

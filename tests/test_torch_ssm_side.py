@@ -139,3 +139,54 @@ def test_assert_sync_zero_catches_a_counter_left_set(monkeypatch):
     buf[5] = 2
     with pytest.raises(AssertionError, match="stream 7.*1 non-zero.*5: 2"):
         cs.assert_sync_zero("tiny")
+
+
+_FRESH = r"""
+import json, pathlib, sys
+root = pathlib.Path(sys.argv[1])
+sys.path[:0] = [str(root / "src"), str(root)]
+import torch
+import chip_smoke as cs
+from repro_torch.core.kernel_cell import KERNELS
+from repro_torch.core.params import default_config
+from repro_torch.kernels.ssm_scan import ops, ref
+spec = KERNELS["ssm_scan"]
+fn, args = spec.build(spec.shapes["tiny"], default_config(),
+                      torch.device("cpu"))
+Y, h = ref.ssm_scan_tiled(*args, ops.KERNEL_CHUNK)
+Y64, h64 = ref.ssm_scan_ref(*(a.double() for a in args), dtype=torch.float64)
+print(json.dumps({"shape": list(args[0].shape), "dtype": str(Y.dtype),
+                  "err_y": float((Y.double() - Y64).abs().max()),
+                  "err_h": float((h.double() - h64).abs().max()),
+                  "host": cs.host_state()}))
+"""
+
+
+def test_tiled_f32_matches_f64_recurrence():
+    """ROADMAP.md queue C item 1: the f32 CPU scan (``ssm_scan_tiled`` at
+    the kernel's chunk, the wrappers' path on CPU tensors) against the
+    f64 recurrence (``ssm_scan_ref``) at ``kernel:ssm_scan:tiny``'s
+    seeded inputs (B 1, S 512, H 2, P = N = 8), in 20 fresh processes
+    (the firings seen, 2.73e-4 on the card's host and 7.4e-4 on a CPU
+    test host against the usual ~3e-6, were each in a fresh process: its
+    first f32 ``torch.exp`` returned one thread's block of 2048 at
+    ~1.5e-4 relative error; the plain scan now takes its exps in f64):
+    each within 2e-5, in Y and in the final state.  A miss prints that
+    process's host state."""
+    import json
+    import subprocess
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    runs = []
+    for batch in range(5):            # four processes at a time
+        procs = [subprocess.Popen([sys.executable, "-c", _FRESH, str(ROOT)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=env)
+                 for _ in range(4)]
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            runs.append(json.loads(out.strip().splitlines()[-1]))
+    assert len(runs) == 20
+    for r in runs:
+        assert r["shape"] == [1, 512, 2, 8] and r["dtype"] == "torch.float32"
+        assert r["err_y"] < 2e-5 and r["err_h"] < 2e-5, r
