@@ -28,12 +28,14 @@ seamless also profile a prefill and decode steps, ``serve_profile``),
 then ``mesh`` (the sharded path at one NCCL rank in this process: a
 (1, 1) ``DeviceMesh``, smollm-135m at full width and depth through
 DTensors and ``local_map`` to the kernels, prefill, decode, a train step
-on the auto path, the gradient collectives and a checkpoint, each
-against the one-device path; ``{"mesh": ...}`` line; its own counters,
-``launches_by_path["mesh"]``),
+on the auto path, the gradient collectives and a checkpoint, then
+zamba2-7b, seamless-m4t-medium and xlstm-1.3b served at full width and
+depth the same way, each against the one-device path; ``{"mesh": ...}``
+line; its own counters, ``launches_by_path["mesh"]``),
 then two campaigns of the port's tuner
 (``repro_torch.launch.tune.tune_campaign``, strategy ``tree``, measured
-re-rank of the top 2, telemetry on), each a path of its own for the
+re-rank of the top 1 in ``tune``, of the top 2 in ``tune_kernels``,
+telemetry on), each a path of its own for the
 counters: ``tune`` walks the serve cell ``serve:smollm-135m:poisson_card``
 (smollm-135m at full width and depth) and ``tune_kernels`` the four
 kernel cells ``kernel:{flash_attention,flash_decode,ssm_scan,rmsnorm}:tiny``;
@@ -1439,26 +1441,38 @@ def agree_train(cfg, shape, device: str = "cuda", draws: int = 4) -> dict:
                               Optimizer(optimizer.init, update))
     master = build_model(cfg).init(0, device=device)
     names = [n for n, _ in _named_leaves(master)]
-    gen = torch.Generator(device=device).manual_seed(1)
+    gen = torch.Generator(device=device)
 
     def one_ulp(t):
         signs = torch.randint(0, 2, t.shape, generator=gen,
                               device=t.device, dtype=torch.int8) * 2 - 1
         return t * (1 + 2.0 ** -23 * signs)
 
-    def step(dev, start):
-        """The step from ``start`` on ``dev`` -> (loss, gradient norm,
-        gradients, update), the tensors on ``dev``."""
-        params = tree_map(lambda t: t.to(dev, copy=True), start)
+    def moved(seed):
+        """The parameters moved by one rounding unit, the same each call
+        (made again for a floor's update, not held beside its step)."""
+        def make():
+            gen.manual_seed(seed)
+            return tree_map(one_ulp, master)
+        return make
+
+    def step(dev, params, before):
+        """The step on ``dev`` from ``params`` (a tree of its own there,
+        which the step updates in place) -> (loss, gradient norm,
+        gradients, update), the tensors on ``dev``; ``before()`` gives
+        the starting parameters again for the update."""
         batch = SyntheticLM(cfg, shape, rt, dev).batch_at(0)
         new, state, met = bundle.fn(params, optimizer.init(params), batch)
-        del state, batch
+        del state, batch, params
         # the step updates its parameters in place (donate_buffers):
         # after minus before, in place
         update = [a.sub_(b.to(dev)) for a, b in zip(tree_leaves(new),
-                                                    tree_leaves(start))]
+                                                    tree_leaves(before()))]
         return (float(met["loss"]), float(met["grad_norm"]),
                 handed.pop("grads"), update)
+
+    def copy_to(dev):
+        return tree_map(lambda t: t.to(dev, copy=True), master)
 
     def fro(xs, ys):
         sq = lambda t: float(torch.linalg.vector_norm(
@@ -1475,16 +1489,16 @@ def agree_train(cfg, shape, device: str = "cuda", draws: int = 4) -> dict:
                 "grad": {n: fro([x], [y]) for n, x, y in zip(names, da, db)}}
 
     seconds, t0 = {}, time.time()
-    card = step(device, master)
+    card = step(device, copy_to(device), lambda: master)
     seconds["card_step"] = time.time() - t0
     if not all(bool(torch.isfinite(t).all()) for t in card[2] + card[3]) \
             or not torch.isfinite(torch.tensor(card[:2])).all():
         raise AssertionError(f"agree_train {cfg.name}: non-finite output "
                              "on the card")
-    floors = [rel(step(device, tree_map(one_ulp, master)), card)
-              for _ in range(draws)]
+    floors = [rel(step(device, moved(1 + i)(), moved(1 + i)), card)
+              for i in range(draws)]
     seconds["floors"] = time.time() - t0 - seconds["card_step"]
-    cpu = step("cpu", master)
+    cpu = step("cpu", copy_to("cpu"), lambda: master)
     got = rel(cpu, card)
     seconds["cpu_step"] = time.time() - t0 - sum(seconds.values())
 
@@ -2003,6 +2017,12 @@ def main_paths() -> list:
 # the mesh phase: smollm-135m at full width and depth, bf16, (B, S) and
 # decode steps; the train step at the same (B, S) in f32
 MESH_ARCH, MESH_BATCH, MESH_DECODE_STEPS = "smollm-135m", (4, 1024), 8
+# and the other families served at full width and depth, bf16: (arch,
+# (B, prompt), encoder frames, decode steps); xlstm's prompt is one mLSTM
+# chunk (its sLSTM runs token by token)
+MESH_FAMILIES = (("zamba2-7b", (4, 1024), 0, 4),
+                 ("seamless-m4t-medium", (4, 1024), 256, 4),
+                 ("xlstm-1.3b", (4, 256), 0, 4))
 
 
 def _host_ms(fn):
@@ -2025,8 +2045,101 @@ def _twice_ms(fn):
     return out, [first, second]
 
 
+def mesh_serve(arch: str, batch: tuple, frames: int, steps: int, mesh,
+               device: str = "cuda") -> dict:
+    """One family served through DTensors on ``mesh`` (tp rules, bf16,
+    the kernels under ``local_map``) against its one-device serve path,
+    at full width and depth: a prefill, called twice (first and warm),
+    and ``steps`` decode steps fed the tokens the one-device path picks.
+    The launch counters are set to 0 just before the sharded calls and
+    read right after them (the one-device calls run first).  Returns the
+    largest differences (every call's logits, the last cache), the host
+    ms of both paths (first call and warm; decode steps 2..n) and the
+    launches beside those the path implies; fails on a difference over
+    bf16's 2e-2 or on launches the path does not imply."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.params import default_config
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import stepfn
+    from repro_torch.runtime.loops import tree_leaves
+    from repro_torch.runtime.sharding import full_tree, shard_tree
+    cfg = get_config(arch)
+    B, S = batch
+    model = build_model(cfg)
+    rt = default_config(compute_dtype="bfloat16", attn_impl="pallas",
+                        shard_strategy="tp")
+    rules = stepfn.build_rules(mesh, cfg, rt)
+    cast = model.cast_params(model.init(0, device=device), rt)
+    gen = torch.Generator(device=device).manual_seed(7)
+    inputs = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                      device=device, dtype=torch.int32)}
+    if frames:
+        inputs["frames"] = torch.randn((B, frames, cfg.d_model),
+                                       generator=gen, device=device,
+                                       dtype=torch.bfloat16)
+    max_seq = S + steps
+    ms = {}
+    with torch.no_grad():
+        (lg0, c0), ms["prefill_one_device"] = _twice_ms(
+            lambda: model.prefill_fn(cast, inputs, rt, None,
+                                     max_seq=max_seq))
+        want, feed, dec0 = [lg0], [], []
+        for _ in range(steps):
+            feed.append(want[-1].argmax(-1).to(torch.int32))
+            (lg0, c0), t = _host_ms(
+                lambda: model.decode_fn(cast, c0, feed[-1], rt, None))
+            dec0.append(t)
+            want.append(lg0)
+        ms["decode_one_device"] = [dec0[0], sum(dec0[1:]) / (steps - 1)]
+        dparams = shard_tree(cast, stepfn._param_specs(model, rules), rules)
+        dinputs = shard_tree(inputs, stepfn._batch_specs(
+            cfg, ShapeConfig("mesh", S, B, "prefill"), rt, rules), rules)
+        for mod in counters().values():
+            mod.launches = 0
+        (lg1, c1), ms["prefill_mesh"] = _twice_ms(
+            lambda: model.prefill_fn(dparams, dinputs, rt, rules,
+                                     max_seq=max_seq))
+        tol = TOL[torch.bfloat16]
+        errs = {"prefill_logits": check(f"mesh {arch} prefill logits",
+                                        lg1.full_tensor(), want[0], tol)}
+        dec1 = []
+        for i, nxt in enumerate(feed):
+            (lg1, c1), t = _host_ms(
+                lambda: model.decode_fn(dparams, c1, nxt, rt, rules))
+            dec1.append(t)
+            errs[f"decode_{i}"] = check(f"mesh {arch} decode {i}",
+                                        lg1.full_tensor(), want[i + 1], tol)
+        launches = {n: mod.launches for n, mod in counters().items()}
+        ms["decode_mesh"] = [dec1[0], sum(dec1[1:]) / (steps - 1)]
+        strip = lambda c: {k: v for k, v in c.items() if k != "pos"}
+        errs["cache"] = max(
+            check(f"mesh {arch} cache", a, b, tol) for a, b in zip(
+                tree_leaves(full_tree(strip(c1))), tree_leaves(strip(c0))))
+        if int(c1["pos"]) != int(c0["pos"]):
+            raise AssertionError(f"mesh {arch}: position {c1['pos']} "
+                                 f"against {c0['pos']}")
+    del c0, c1, lg0, lg1, dparams, cast
+    per_prefill, per_step = launches_per_unit(cfg)
+    # the sharded prefill runs twice (first and warm)
+    expected = {k: 2 * per_prefill[k] + steps * per_step[k]
+                for k in per_prefill}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        if launches != expected:
+            raise AssertionError(f"mesh {arch}: launches {launches}, the "
+                                 f"path implies {expected}")
+    return {"arch": arch, "layers": cfg.n_layers, "batch": [B, S],
+            "frames": frames, "decode_steps": steps, "max_abs_err": errs,
+            "launches": launches, "expected_launches": expected,
+            "host_ms": ms, "dispatch_cost_ms": {
+                k: ms[f"{k}_mesh"][1] - ms[f"{k}_one_device"][1]
+                for k in ("prefill", "decode")}}
+
+
 def phase_mesh(device: str = "cuda", cfg=None, batch=MESH_BATCH,
-               steps: int = MESH_DECODE_STEPS) -> dict:
+               steps: int = MESH_DECODE_STEPS,
+               families=MESH_FAMILIES) -> dict:
     """The sharded path at one rank: a process group of one (NCCL on the
     card, through a ``FileStore`` in a temporary directory) and a (1, 1)
     ``DeviceMesh`` ("data", "model") in this process, smollm-135m at
@@ -2046,12 +2159,17 @@ def phase_mesh(device: str = "cuda", cfg=None, batch=MESH_BATCH,
     each gradient rounded through bf16, int8_ef the quantize/dequantize
     round trip to one quantisation step and its residual bit for bit;
     (e) the step's DTensor state saved and restored on one device, bit
-    for bit.  The launch counters are set to 0 just before the sharded
-    prefill and read after its decode steps (the one-device calls that
-    it is compared with run first).  Host ms of (a)-(c), each call's
-    first and warm time (the prefill and the train step called twice,
-    decode steps 2..n), beside the one-device ms of the same calls: the
-    cost of DTensor dispatch at one rank."""
+    for bit; (f) each of ``families`` served the same way at full width
+    and depth (:func:`mesh_serve`: zamba2-7b, whose prefill reaches the
+    scan under ``local_map``, seamless-m4t-medium and xlstm-1.3b).  The
+    launch counters are set to 0 just before each sharded serve and read
+    after its decode steps (the one-device calls that it is compared
+    with run first); the path's launches are their sum.  Host ms of
+    (a)-(c) and (f), each call's first and warm time (the prefills and
+    the train step called twice, decode steps 2..n), beside the
+    one-device ms of the same calls: the cost of DTensor dispatch at one
+    rank.  A cache split along its sequence (batch 1 on a data axis
+    above 1) cannot occur at one rank: the gloo tests hold it."""
     import torch.distributed as dist
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.configs import get_config
@@ -2239,6 +2357,18 @@ def phase_mesh(device: str = "cuda", cfg=None, batch=MESH_BATCH,
             out["dispatch_cost_ms"] = {
                 k: ms[f"{k}_mesh"][1] - ms[f"{k}_one_device"][1]
                 for k in ("prefill", "decode", "train")}
+            del state, back, full, p1, s1, p2, s2
+            if on_card:
+                torch.cuda.empty_cache()
+
+            # (f) the other families, served
+            out["families"] = []
+            for arch, fb, frames, fsteps in families:
+                res = mesh_serve(arch, fb, frames, fsteps, mesh, device)
+                out["families"].append(res)
+                for k, n in res["launches"].items():
+                    launches[k] += n
+            out["launches"] = launches
         finally:
             dist.destroy_process_group()
     if on_card:
@@ -2246,12 +2376,15 @@ def phase_mesh(device: str = "cuda", cfg=None, batch=MESH_BATCH,
     return out
 
 
+# (path, cells, kernels each must launch, measured re-rank of the top k):
+# the serve walk re-ranks its winner alone (each serve trial is five
+# replays of the trace), the kernel walk its top 2
 TUNE_CAMPAIGNS = (
     ("tune", "serve:smollm-135m:poisson_card",
-     ("rmsnorm", "flash_attention", "flash_decode")),
+     ("rmsnorm", "flash_attention", "flash_decode"), 1),
     ("tune_kernels", "kernel:flash_attention:tiny,kernel:flash_decode:tiny,"
      "kernel:ssm_scan:tiny,kernel:rmsnorm:tiny",
-     ("rmsnorm", "flash_attention", "flash_decode", "ssm_scan")),
+     ("rmsnorm", "flash_attention", "flash_decode", "ssm_scan"), 2),
 )
 
 
@@ -2970,10 +3103,11 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": mesh}), flush=True)
     emit("mesh", seconds=round(time.time() - START, 1))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as root:
-        for path, specs, expect in TUNE_CAMPAIGNS:
+        for path, specs, expect, top_k in TUNE_CAMPAIGNS:
             for mod in counters().values():
                 mod.launches = 0
-            result = phase_tune(path, specs, pathlib.Path(root))
+            result = phase_tune(path, specs, pathlib.Path(root),
+                                measure_top_k=top_k)
             by_path[path] = got = {name: mod.launches
                                    for name, mod in counters().items()}
             emit(path, launches=got, **result)

@@ -14,7 +14,9 @@ causal) and the cross-attention take the eager path of
 The cache is ``{"self": {"k", "v"[, "k_scale", "v_scale"]}, "cross_k",
 "cross_v", "pos"}``: the self cache stacked ``(L, B, Smax, Hkv, hd)`` in
 ``kv_cache_dtype``, the cross K/V ``(L, B, enc_len, Hkv, hd)`` in the
-compute dtype, ``pos`` a host integer.
+compute dtype, ``pos`` a host integer.  On a mesh (``rules``) the
+cache's tensors are DTensors on the placements of their logical names
+(``cache_shapes``), the cross K/V split like the self cache.
 """
 from __future__ import annotations
 
@@ -158,13 +160,11 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
 
     def body(x, bp):
         hn = L.rmsnorm(x, bp["ln1"], rt, cfg.norm_eps)
-        k = torch.einsum("bsd,dhk->bshk", hn, L.cast(bp["attn"]["wk"], rt))
-        v = torch.einsum("bsd,dhk->bshk", hn, L.cast(bp["attn"]["wv"], rt))
+        k = L.heads_in(hn, L.cast(bp["attn"]["wk"], rt))
+        v = L.heads_in(hn, L.cast(bp["attn"]["wv"], rt))
         k = L.rope(k, positions, cfg.rope_theta)
-        xk = torch.einsum("bsd,dhk->bshk", enc_out,
-                          L.cast(bp["xattn"]["wk"], rt))
-        xv = torch.einsum("bsd,dhk->bshk", enc_out,
-                          L.cast(bp["xattn"]["wv"], rt))
+        xk = L.heads_in(enc_out, L.cast(bp["xattn"]["wk"], rt))
+        xv = L.heads_in(enc_out, L.cast(bp["xattn"]["wv"], rt))
         x = _dec_block(bp, x, enc_out, positions, cfg, rt, rules)
         kq, ks = L.quantize_kv(k, rt.kv_cache_dtype)
         vq, vs = L.quantize_kv(v, rt.kv_cache_dtype)
@@ -183,8 +183,11 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     if len(extras) == 4:
         self_kv["k_scale"] = pad_seq(extras[2])
         self_kv["v_scale"] = pad_seq(extras[3])
-    return logits, {"self": self_kv, "cross_k": xk, "cross_v": xv,
-                    "pos": S}
+    cache = {"self": self_kv, "cross_k": xk, "cross_v": xv, "pos": S}
+    if rules is not None:
+        cache = L.constrain_tree(rules, cache, cache_shapes(
+            cfg, B, max_seq, rt, enc_len=xk.shape[2])[1])
+    return logits, cache
 
 
 def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
@@ -195,6 +198,11 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     false); the cross cache is only read."""
     h = L.embed(p["embed"], tokens, rt)
     pos = int(cache["pos"])
+    if rules is not None:
+        xk = cache["cross_k"]
+        cache = L.constrain_tree(rules, cache, cache_shapes(
+            cfg, xk.shape[1], cache["self"]["k"].shape[2], rt,
+            enc_len=xk.shape[2])[1])
     self_kv = cache["self"]
     if not rt.donate_buffers:
         self_kv = {k: t.clone() for k, t in self_kv.items()}
@@ -210,12 +218,16 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
         x = x + a
         # cross-attention against the fixed encoder cache
         hn = L.rmsnorm(x, bp["lnx"], rt, cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", hn, L.cast(bp["xattn"]["wq"], rt))
+        q = L.heads_in(hn, L.cast(bp["xattn"]["wq"], rt))
         kf = L._repeat_kv(xk.to(L.dt(rt)), n_rep)
         vf = L._repeat_kv(xv.to(L.dt(rt)), n_rep)
+        if rules is not None:
+            q, kf, vf = (rules.constrain(t, "batch", None, "heads", None)
+                         for t in (q, kf, vf))
         o = L.full_attention(q, kf, vf, causal=False, rt=rt)
-        x = x + torch.einsum("bshk,hkd->bsd", o,
-                             L.cast(bp["xattn"]["wo"], rt))
+        if rules is not None:
+            o = rules.constrain(o, "batch", None, "heads", None)
+        x = x + L.heads_out(o, L.cast(bp["xattn"]["wo"], rt))
         hn = L.rmsnorm(x, bp["ln2"], rt, cfg.norm_eps)
         return x + L.mlp_block(bp["mlp"], hn, cfg=cfg, rt=rt,
                                rules=rules), None

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+import repro_torch.kernels  # noqa: F401  (its import warms the host's exp)
 from repro_torch.core.params import TunableConfig
 from repro_torch.runtime.loops import tree_map
 from repro_torch.runtime.remat import torch_dtype
@@ -71,22 +72,82 @@ def _replicated(w, like):
 
 def sharded_kernel(fn, out, *args):
     """``fn(*args)`` with every DTensor argument replaced by its local
-    block, under ``local_map``: the output has the placements of the
-    argument ``out`` indexes (a kernel's output is laid out like its
-    query or its input rows).  Plain tensors call ``fn`` directly.  Every
-    DTensor argument must be split only on dims ``fn`` treats as
-    independent (batch, rows, heads): the caller's placements say so."""
+    block, under ``local_map``.  ``out`` an integer: ``fn`` returns one
+    tensor, laid out like the argument ``out`` indexes (a kernel's output
+    is laid out like its query or its input rows).  ``out`` a tuple:
+    ``fn`` returns that many tensors, each laid out like the argument an
+    integer entry indexes or on the placements a tuple entry gives.
+    Plain tensors call ``fn`` directly.  Every DTensor argument must be
+    split only on dims ``fn`` treats as independent (batch, rows, heads):
+    the caller's placements say so.  Where ``fn`` is differentiated (the
+    eager ops of a train step), an argument's gradient is split where
+    the argument is, and partial (a sum over the ranks) on a mesh dim
+    that splits another argument but not this one: every rank there used
+    all of it."""
     if not any(is_dtensor(a) for a in args):
         return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     # a pending sum is reduced first: ``fn`` sees whole values
     args = tuple(_reduced(a) if is_dtensor(a) else a for a in args)
-    ref = args[out]
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
     ins = tuple(tuple(a.placements) if is_dtensor(a) else None
                 for a in args)
+    split = [any(pl is not None and pl[i].is_shard() for pl in ins)
+             for i in range(mesh.ndim)]
+    grads = tuple(None if pl is None else tuple(
+        p if p.is_shard() else Partial() if split[i] else Replicate()
+        for i, p in enumerate(pl)) for pl in ins)
+    place = lambda o: ins[o] if isinstance(o, int) else tuple(o)
     # one output: its placements as a list (a tuple means one per output)
-    return local_map(fn, out_placements=list(ref.placements),
-                     in_placements=ins, device_mesh=ref.device_mesh)(*args)
+    outs = list(place(out)) if isinstance(out, int) else \
+        tuple(place(o) for o in out)
+    return local_map(fn, out_placements=outs, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh)(*args)
+
+
+def on(x, placements):
+    """``x`` on ``placements`` of its mesh (a pending sum reduced); a
+    plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    x = _reduced(x)
+    placements = tuple(placements)
+    return x if tuple(x.placements) == placements else \
+        x.redistribute(x.device_mesh, placements)
+
+
+def moved(placements, dims):
+    """``placements`` with each ``Shard(i)`` as ``Shard(dims[i])``, and
+    replicated where ``dims`` has no ``i``: the placements of a tensor
+    whose dim ``dims[i]`` goes with dim ``i`` of the first (a weight's
+    channels with an activation's)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                 else Replicate() for p in placements)
+
+
+def write_into(dst, src):
+    """``dst.copy_(src)``, in place.  On DTensors each rank writes its
+    block of ``src`` (brought to ``dst``'s placements) into its own block
+    of ``dst`` under ``local_map``: the cache's own storage."""
+    if not is_dtensor(dst):
+        return dst.copy_(src)
+    return sharded_kernel(lambda d, s: d.copy_(s), 0, dst,
+                          on(src, dst.placements))
+
+
+def constrain_tree(rules, tree, logical):
+    """A cache tree with every DTensor on the placements of its logical
+    names (``logical``: the tree of ``cache_shapes``); host integers as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: constrain_tree(rules, v, logical[k])
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(constrain_tree(rules, v, lg)
+                          for v, lg in zip(tree, logical))
+    return rules.constrain(tree, *logical) if is_dtensor(tree) else tree
 
 
 # ---------------------------------------------------------------- params
@@ -407,30 +468,54 @@ def decode_attention_block(p, x, layer_cache, pos: int, *, cfg,
     cache = layer_cache
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     news = dict(zip(("k", "v", "k_scale", "v_scale"), (kq, vq, ks, vs)))
+    lo, groups = 0, []           # this rank's first row; the seq's groups
 
     def attend(qx, *bufs):
-        # the cache write and the attention on plain (or local) tensors
+        # the cache write and the attention on plain (or local) tensors:
+        # the rank that holds row ``pos`` writes it, and a cache split
+        # along its sequence is gathered up to ``pos`` first
         c = dict(zip(names, bufs[:len(names)]))
         for n, new in zip(names, bufs[len(names):]):
-            c[n][:, pos:pos + 1] = new
+            if lo <= pos < lo + c[n].shape[1]:
+                c[n][:, pos - lo:pos - lo + 1] = new
+        if groups:
+            c = {n: _gather_prefix(t, pos + 1, groups) for n, t in c.items()}
         return _decode_attend(qx, c, pos, cfg, rt)
 
     args = [q] + [cache[n] for n in names] + [news[n] for n in names]
     if is_dtensor(cache["k"]):
         # each rank writes and attends its block of the cache: its batch
-        # rows and its KV heads, the query's heads alongside them
+        # rows and its KV heads, the query's heads alongside them.  A
+        # sequence split on the data axes (batch 1) holds rows
+        # [lo, lo + Smax / n) here; the query and the new row are whole
+        # along the sequence, and the live prefix is gathered over the
+        # data group, as the reference's kernel call replicates a split
+        # operand
+        from torch.distributed.tensor import Replicate
+        mesh = cache["k"].device_mesh
         pl = tuple(cache["k"].placements)
-        if any(getattr(pc, "dim", None) == 1 and n > 1 for pc, n in
-               zip(pl, cache["k"].device_mesh.shape)):
-            raise NotImplementedError(
-                "decode against a cache split along its sequence (batch 1 "
-                "on a data axis) is not ported (ROADMAP.md queue A, "
-                "slice 7b)")
-        args = [a.redistribute(a.device_mesh, pl) if is_dtensor(a) else a
-                for a in args]
+        seq = [i for i, pc in enumerate(pl) if pc.is_shard(1)]
+        lo = _block_start(mesh, pl, 1, cache["k"].shape[1])
+        groups = [mesh.get_group(i) for i in reversed(seq)]
+        qpl = tuple(Replicate() if pc.is_shard(1) else pc for pc in pl)
+        args = [on(a, pl if i and i <= len(names) else qpl)
+                for i, a in enumerate(args)]
     o = sharded_kernel(attend, 0, *args)
     out = heads_out(o, cast(p["wo"], rt))
     return out, cache
+
+
+def _gather_prefix(t, length: int, groups):
+    """Rows [0, length) (dim 1) of a cache split along its sequence over
+    ``groups`` (the minor mesh axis first): each rank's block cut to its
+    first ``min(block, length)`` rows, gathered in rank order.  Where
+    ``length`` passes one block every block goes whole; where it does
+    not, the first block's rows are the first rows gathered."""
+    from repro_torch.runtime.gradsync import all_gather_dim
+    t = t[:, :min(t.shape[1], length)]
+    for g in groups:
+        t = all_gather_dim(t, 1, g)
+    return t[:, :length]
 
 
 def _decode_attend(q, cache, pos: int, cfg, rt: TunableConfig):

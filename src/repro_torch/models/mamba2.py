@@ -7,6 +7,14 @@ hand-written ``ssm_scan`` kernel (which runs chunks of its own at every
 S, the ragged last chunk masked; the config's chunk names the logical
 tile only); with ``"xla"`` it is ``ssd_chunked`` here, in eager torch ops
 (which pads S to a multiple of the chunk), as in the reference.
+
+With ``rules`` (DTensors on a mesh) the conv, the scan and the decode
+update run on each rank's block under ``local_map``
+(``layers.sharded_kernel``), as the reference's kernel runs under
+``shard_map``: X, dt and the log decay split on batch (the data axes)
+and heads (the model axis, where they divide), B and C on batch only,
+the state like X.  Every one of them is independent over batch and
+heads.
 """
 from __future__ import annotations
 
@@ -97,8 +105,7 @@ def ssd_chunked(X, Bm, Cm, dt, loga, chunk: int, h0=None):
     # before the exp, so those entries are 0 as in the reference and the
     # gradient there is 0 (exp, then a mask, would give 0 * inf = NaN)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    tri = L.replicated_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                                  device=X.device)), diff)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=X.device))
     Lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
                                       float("-inf")))
     G = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)         # shared across heads
@@ -110,8 +117,7 @@ def ssd_chunked(X, Bm, Cm, dt, loga, chunk: int, h0=None):
                       Xc.to(f32), Bc)
     a_chunk = torch.exp(cum[:, :, -1, :])               # (B,nc,H)
     # sequential cross-chunk state scan
-    h = L.replicated_like(torch.zeros((Bsz, H, P, N), dtype=f32,
-                                      device=X.device), Sc) \
+    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=X.device) \
         if h0 is None else h0
     y_inter = []
     for c in range(nc):
@@ -121,6 +127,30 @@ def ssd_chunked(X, Bm, Cm, dt, loga, chunk: int, h0=None):
     Y_inter = torch.stack(y_inter, dim=1)               # (B,nc,Q,H,P)
     Y = (Y_intra + Y_inter).reshape(Bsz, S, H, P)
     return Y.to(X.dtype), h
+
+
+def _placements(rules, B, S, H, P, N):
+    """The scan's placements on ``rules``' mesh: (X (B,S,H,P), which
+    also serve dt, loga (B,S,H) and xin (B,S,H*P): split on dim 0 and 2
+    alike; Bm and Cm (B,S,N); the state (B,H,P,N))."""
+    heads = rules.placements(rules.act_spec(
+        ("batch", None, "ssm_heads", None), (B, S, H, P)))
+    rows = rules.placements(rules.act_spec(("batch", None, None), (B, S, N)))
+    state = rules.placements(rules.act_spec(
+        ("batch", "ssm_heads", None, None), (B, H, P, N)))
+    return heads, rows, state
+
+
+def _on_mesh(rules, B, S, H, P, N, xin, Bm, Cm, dt, loga, conv, D):
+    """The block's operands on the scan's placements (the conv's and D's
+    channels split with xin's heads); returns them and the state's
+    placements."""
+    heads, rows, state = _placements(rules, B, S, H, P, N)
+    xin, dt, loga = (L.on(t, heads) for t in (xin, dt, loga))
+    Bm, Cm = (L.on(t, rows) for t in (Bm, Cm))
+    conv = L.on(conv, L.moved(heads, {2: 1}))
+    D = L.on(D, L.moved(heads, {2: 0}))
+    return xin, Bm, Cm, dt, loga, conv, D, state
 
 
 def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
@@ -133,25 +163,32 @@ def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
     P = cfg.ssm_head_dim
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
     xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt)
-    xin, conv_state = _causal_conv(xin, L.cast(p["conv"], rt))
-    xin = F.silu(xin)
+    conv, D, state = L.cast(p["conv"], rt), p["D"], None
     if rules is not None:
         xin = rules.constrain(xin, "batch", None, "ssm_inner")
-    X = xin.reshape(B, S, H, P)
+        xin, Bm, Cm, dt, loga, conv, D, state = _on_mesh(
+            rules, B, S, H, P, cfg.ssm_state, xin, Bm, Cm, dt, loga, conv, D)
     if rt.attn_impl == "pallas":
         from repro_torch.kernels.ssm_scan import ops as ssm_ops
-        Y, h_final = ssm_ops.ssm_scan(X, Bm, Cm, dt, loga,
-                                      chunk=cfg.ssm_chunk)
+        scan = lambda *a: ssm_ops.ssm_scan(*a, chunk=cfg.ssm_chunk)
     else:
-        Y, h_final = ssd_chunked(X, Bm, Cm, dt, loga, cfg.ssm_chunk)
-    Y = Y + p["D"].to(Y.dtype)[None, None, :, None] * X
-    y = Y.reshape(B, S, d_in)
+        scan = lambda *a: ssd_chunked(*a, cfg.ssm_chunk)
+
+    def block(xin, conv, Bm, Cm, dt, loga, D):
+        xin, conv_state = _causal_conv(xin, conv)
+        X = F.silu(xin).unflatten(-1, (-1, P))
+        Y, h_final = scan(X, Bm, Cm, dt, loga)
+        Y = Y + D.to(Y.dtype)[None, None, :, None] * X
+        return Y.flatten(2), h_final, conv_state.float()
+
+    y, h_final, conv_state = L.sharded_kernel(
+        block, (0, state, 0), xin, conv, Bm, Cm, dt, loga, D)
     y = L.rmsnorm(y * F.silu(z), p["gln"], rt, cfg.norm_eps)
     if rules is not None:
         y = rules.constrain(y, "batch", None, "ssm_inner")
     out = x + y @ L.cast(p["wo"], rt)
     if want_state:
-        return out, {"ssm": h_final, "conv": conv_state.float()}
+        return out, {"ssm": h_final, "conv": conv_state}
     return out
 
 
@@ -178,19 +215,29 @@ def mamba_decode_block(p, x, layer_cache, cfg, rt: TunableConfig, rules):
     P = cfg.ssm_head_dim
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
     xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt)
-    xin, conv_state = _causal_conv(xin, L.cast(p["conv"], rt),
-                                   state=layer_cache["conv"])
-    xin = F.silu(xin)
-    X = xin.reshape(B, H, P).float()
-    a = torch.exp(loga[:, 0, :])                        # (B,H)
-    hs = layer_cache["ssm"]                             # (B,H,P,N)
-    hs = (a[:, :, None, None] * hs
-          + torch.einsum("bh,bhp,bn->bhpn", dt[:, 0], X, Bm[:, 0]))
-    Y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], hs)
-    Y = Y + p["D"].to(Y.dtype)[None, :, None] * X
-    y = Y.reshape(B, 1, d_in).to(x.dtype)
-    y = L.rmsnorm(y * F.silu(z), p["gln"], rt, cfg.norm_eps)
+    conv, D, state = L.cast(p["conv"], rt), p["D"], layer_cache["ssm"]
+    conv_state = layer_cache["conv"]
+    if rules is not None:
+        xin, Bm, Cm, dt, loga, conv, D, spl = _on_mesh(
+            rules, B, 1, H, P, cfg.ssm_state, xin, Bm, Cm, dt, loga, conv, D)
+        conv_state = L.on(conv_state, xin.placements)
+        state = L.on(state, spl)
+
+    def update(xin, conv, conv_state, Bm, Cm, dt, loga, D, hs):
+        xin, conv_state = _causal_conv(xin, conv, state=conv_state)
+        X = F.silu(xin).unflatten(-1, (-1, P))[:, 0].float()   # (B,H,P)
+        a = torch.exp(loga[:, 0, :])                        # (B,H)
+        hs = (a[:, :, None, None] * hs
+              + torch.einsum("bh,bhp,bn->bhpn", dt[:, 0], X, Bm[:, 0]))
+        Y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], hs)
+        Y = Y + D.to(Y.dtype)[None, :, None] * X
+        return Y.flatten(1)[:, None], hs, conv_state.float()
+
+    y, hs, conv_state = L.sharded_kernel(
+        update, (0, 8, 0), xin, conv, conv_state, Bm, Cm, dt, loga, D,
+        state)
+    y = L.rmsnorm(y.to(x.dtype) * F.silu(z), p["gln"], rt, cfg.norm_eps)
     if rules is not None:
         y = rules.constrain(y, "batch", None, "ssm_inner")
     out = x + y @ L.cast(p["wo"], rt)
-    return out, {"ssm": hs, "conv": conv_state.float()}
+    return out, {"ssm": hs, "conv": conv_state}

@@ -8,7 +8,11 @@ chosen per workload shape:
     ``all_to_all`` to the expert shards and back (the paper's
     "shuffle").  The wire dtype is the ``comm_codec`` knob.
   * ``ep_gather`` — decode (few tokens): replicated dispatch,
-    expert-sharded FFN, ``all_gather`` combine.
+    expert-sharded FFN, ``all_gather`` combine.  Its gradient is the
+    reference's: the gather's transpose is a reduce-scatter, each model
+    rank takes 1/ep of the cotangent of the output it holds whole, and
+    the input's gradient sums the model ranks' (the dense gradient, as
+    the reference's ``shard_map`` gives it).
   * ``dense`` — exact top-k MoE with no capacity drops: the path with
     no rules and on a mesh whose model axis is 1 or does not divide the
     experts (there every rank runs it on its own tokens, and the aux is
@@ -18,8 +22,8 @@ The expert-parallel paths run under ``local_map`` (the reference's
 ``shard_map``) on local blocks with explicit collectives on the mesh's
 ``model`` group; their capacity ``C`` is the reference's, so their
 shapes are static.  The collectives are differentiable (an all-to-all's
-gradient is the opposite all-to-all, an fsdp all-gather's a
-reduce-scatter), so a train step runs through ``ep_alltoall``.  The aux
+gradient is the opposite all-to-all, an all-gather's a reduce-scatter),
+so a train step runs through either path.  The aux
 loss there is the mean of the shards' Switch estimators, as in the
 reference.
 
@@ -211,7 +215,8 @@ def _all_to_all(x, group, split: int, concat: int):
 
 class _GatherSum(torch.autograd.Function):
     """Tiled all-gather along ``dim`` whose gradient is the
-    reduce-scatter (an fsdp weight gathered for use)."""
+    reduce-scatter (an fsdp weight gathered for use; ep_gather's
+    combine)."""
 
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -226,29 +231,21 @@ class _GatherSum(torch.autograd.Function):
         return reduce_scatter_dim(g, dim, group), None, None
 
 
-class _GatherNoGrad(torch.autograd.Function):
-    """ep_gather's combine all-gather: a serving path, not differentiated
-    (its input's gradient would be split between the experts' ranks and
-    the routing that every rank repeats)."""
+class _SharedGrad(torch.autograd.Function):
+    """The identity, its gradient divided by ``n``: an output that every
+    one of ``n`` ranks holds whole hands each of them 1/n of its
+    cotangent, as the transpose of the reference's ``shard_map`` shares
+    out the cotangent of an output replicated over an axis (the ranks'
+    gradients of their replicated input are then summed)."""
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        from repro_torch.runtime.gradsync import all_gather_dim
-        return all_gather_dim(x, dim, group)
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the gradient of the ep_gather MoE path is not ported "
-            "(ROADMAP.md queue A, slice 7b); train with a sequence the "
-            "model axis divides (ep_alltoall)")
-
-
-def _gather_combine(x, group):
-    if x.requires_grad:
-        return _GatherNoGrad.apply(x, group, 0)
-    from repro_torch.runtime.gradsync import all_gather_dim
-    return all_gather_dim(x, 0, group)
+        return g / ctx.n, None
 
 
 class _MeanOver(torch.autograd.Function):
@@ -398,11 +395,14 @@ def _ep_moe(p, x, cfg, rt, rules, path: str):
             mine = buf[ridx * e_local:(ridx + 1) * e_local]
             out = experts(mine, wg, wu, wd)
             wire, scale = _encode_wire(out, rt.comm_codec)
-            full = _gather_combine(wire, model_group)
-            fscale = (_gather_combine(scale, model_group)
+            full = _GatherSum.apply(wire, model_group, 0)
+            fscale = (_GatherSum.apply(scale, model_group, 0)
                       if scale is not None else None)
             back = _decode_wire(full, fscale, comp)
             y = _combine(back, gv, keep, slot, fe, T, k, d)
+            # every model rank holds y whole: each takes 1/ep of its
+            # cotangent, and x's gradient sums the model ranks'
+            y = _SharedGrad.apply(y, ep)
             return y.reshape(Bl, S, d), aux_mean(aux)
 
         xspec = (batch_axes or None, None, None)
@@ -415,8 +415,7 @@ def _ep_moe(p, x, cfg, rt, rules, path: str):
     y, aux = local_map(
         fn, out_placements=(rules.placements(xspec), rep),
         in_placements=tuple(rules.placements(s) for s in specs),
-        in_grad_placements=(rules.placements(xspec),)
-        + tuple(_grad_placements(rules, s) for s in specs[1:]),
+        in_grad_placements=tuple(_grad_placements(rules, s) for s in specs),
         device_mesh=mesh, redistribute_inputs=True)(
             x, L.cast(p["router"], rt), p["wg"], p["wu"], p["wd"])
     return y, aux

@@ -13,6 +13,15 @@ The cache is ``{"m_h", "m_n", "s", "pos"}``: the mLSTM states stacked
 ``(groups, mLSTM blocks a group, B, H, hd, hd)`` and ``(..., B, H, hd)``
 f32, the sLSTM state a tuple of four ``(groups, B, d)`` f32 tensors (c,
 n, m, h) and ``pos`` a host integer, as in the reference.
+
+With ``rules`` (DTensors on a mesh) each block's recurrence runs on
+local tensors under one ``local_map`` (``layers.sharded_kernel``): the
+mLSTM's chunked form and its decode step on each rank's batch rows and
+its block of the value dim (``ssm_inner``: every term is independent
+over it), the sLSTM's loop over the tokens on each rank's batch rows
+(op by op on DTensors it would pay DTensor's dispatch some thirty times
+a token).  Decode writes the new states into each rank's block of the
+cache.
 """
 from __future__ import annotations
 
@@ -65,8 +74,7 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
     # as in the reference and their gradient is 0 (the reference takes
     # the exp first and masks after: 0 * inf = NaN in its gradient)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    tri = L.replicated_like(torch.tril(torch.ones((Q, Q), dtype=torch.bool,
-                                                  device=q.device)), diff)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
     Lmat = torch.exp(diff.masked_fill(~tri[None, None, :, :, None],
                                       float("-inf")))
     G = torch.einsum("bcqhn,bckhn->bcqkh", qc, kc)
@@ -80,10 +88,9 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
     a_chunk = torch.exp(cum[:, :, -1, :])                 # (B,nc,H)
     # the reference's inter-chunk scan, a loop over the chunks
     if state is None:
-        h = L.replicated_like(torch.zeros((Bsz, H, hd, hd), dtype=f32,
-                                          device=q.device), Sc)
-        n = L.replicated_like(torch.zeros((Bsz, H, hd), dtype=f32,
-                                          device=q.device), Sc)
+        h = torch.zeros((Bsz, H, v.shape[-1], hd), dtype=f32,
+                        device=q.device)
+        n = torch.zeros((Bsz, H, hd), dtype=f32, device=q.device)
     else:
         h, n = state
     y_inter, nn_inter = [], []
@@ -99,42 +106,76 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
     qn = torch.einsum("bcqhn,bcqhn->bcqh", qc, n_intra) \
         + torch.stack(nn_inter, dim=1)
     denom = torch.clamp(torch.abs(qn), min=1.0)[..., None]
-    y = (y / denom).reshape(Bsz, S, H, hd)
+    y = (y / denom).reshape(Bsz, S, H, -1)
     return y.to(q.dtype), (h, n)
+
+
+def _mlstm_step(q, k, v, ig, lf, hs, ns):
+    """One decode token of the mLSTM: (y (B,1,H,hd), (h, n))."""
+    f32 = torch.float32
+    q0, k0, v0 = q[:, 0].to(f32), k[:, 0].to(f32), v[:, 0].to(f32)
+    a = torch.exp(lf[:, 0])                           # (B,H)
+    hs = (a[:, :, None, None] * hs
+          + torch.einsum("bh,bhp,bhn->bhpn", ig[:, 0], v0, k0))
+    ns = a[:, :, None] * ns + ig[:, 0, :, None] * k0
+    yq = torch.einsum("bhn,bhpn->bhp", q0, hs)
+    qn = torch.einsum("bhn,bhn->bh", q0, ns)
+    y = (yq / torch.clamp(torch.abs(qn), min=1.0)[:, :, None])[:, None]
+    return y, hs, ns
+
+
+def _values(h, wv, rules):
+    """``einsum("bsd,dhk->bshk", h, wv)``; on a mesh each rank's block of
+    the value dim from its block of ``wv`` (the product over flattened
+    heads would split along h*k with k split: a strided shard)."""
+    if rules is None:
+        return torch.einsum("bsd,dhk->bshk", h, wv)
+    B, S, _ = h.shape
+    out = rules.placements(rules.act_spec(("batch", None, None, "ssm_inner"),
+                                          (B, S) + tuple(wv.shape[1:])))
+    h = L.on(h, L.moved(out, {0: 0}))
+    wv = L.on(wv, L.moved(out, {3: 2}))
+    return L.sharded_kernel(
+        lambda a, w: (torch.einsum("bsd,dhk->bshk", a, w),), (out,), h,
+        wv)[0]
 
 
 def mlstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
                 state=None, decode=False):
     B, S, d = x.shape
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, L.cast(p["wq"], rt)) \
-        / (cfg.hd ** 0.5)
-    k = torch.einsum("bsd,dhk->bshk", h, L.cast(p["wk"], rt))
-    v = torch.einsum("bsd,dhk->bshk", h, L.cast(p["wv"], rt))
-    if rules is not None:
-        v = rules.constrain(v, "batch", None, None, "ssm_inner")
+    q = L.heads_in(h, L.cast(p["wq"], rt)) / (cfg.hd ** 0.5)
+    k = L.heads_in(h, L.cast(p["wk"], rt))
+    v = _values(h, L.cast(p["wv"], rt), rules)
     ig = torch.sigmoid((h @ L.cast(p["wi"], rt)).float())
     lf = _logsigmoid((h @ L.cast(p["wf"], rt)).float())
     og = torch.sigmoid(h @ L.cast(p["wog"], rt))
-    if decode:
-        hs, ns = state
-        f32 = torch.float32
-        q0, k0, v0 = q[:, 0].to(f32), k[:, 0].to(f32), v[:, 0].to(f32)
-        a = torch.exp(lf[:, 0])                           # (B,H)
-        hs = (a[:, :, None, None] * hs
-              + torch.einsum("bh,bhp,bhn->bhpn", ig[:, 0], v0, k0))
-        ns = a[:, :, None] * ns + ig[:, 0, :, None] * k0
-        yq = torch.einsum("bhn,bhpn->bhp", q0, hs)
-        qn = torch.einsum("bhn,bhn->bh", q0, ns)
-        y = (yq / torch.clamp(torch.abs(qn), min=1.0)[:, :, None])[:, None]
-        new_state = (hs, ns)
-    else:
-        y, new_state = _mlstm_chunked(q, k, v, ig, lf, cfg.ssm_chunk, state)
+    args = (q, k, v, ig, lf) + tuple(state or ())
+    outs = None
+    if rules is not None:
+        # the value dim on the model axis (v, y and the matrix state),
+        # batch on the data axes, the rest whole on the model axis
+        rows = L.moved(v.placements, {0: 0})
+        pv = tuple(v.placements)
+        hsp = L.moved(pv, {0: 0, 3: 2})
+        args = tuple(L.on(a, pl) for a, pl in zip(
+            args, (rows, rows, pv, rows, rows, hsp, rows)))
+        outs = (2, hsp, rows)
+    step = _mlstm_step if decode else \
+        (lambda *a: _flat_chunked(cfg.ssm_chunk, *a))
+    y, *new_state = L.sharded_kernel(step, outs, *args)
+    if rules is not None:
+        y = L.on(y, L.moved(y.placements, {0: 0}))
     y = y.reshape(B, S, d).to(x.dtype) * og
     out = x + y @ L.cast(p["wo"], rt)
     if want_state or decode:
-        return out, new_state
+        return out, tuple(new_state)
     return out
+
+
+def _flat_chunked(chunk, q, k, v, ig, lf, *state):
+    y, (h, n) = _mlstm_chunked(q, k, v, ig, lf, chunk, state or None)
+    return y, h, n
 
 
 # ----------------------------------------------------------- sLSTM
@@ -185,35 +226,42 @@ def init_slstm_state(B: int, d: int, device):
                              device=device), z)
 
 
+def _slstm_scan(zi, zf, zz, zo, ri, rf, rz, ro, *state):
+    """The sLSTM over the S tokens of ``zi`` (B,S,d) from ``state`` (the
+    initial state where none is given): (y (B,S,d), c, n, m, h)."""
+    pf = {"ri": ri, "rf": rf, "rz": rz, "ro": ro}
+    carry = state or init_slstm_state(zi.shape[0], zi.shape[2], zi.device)
+    ys = []
+    for t in zip(zi.unbind(1), zf.unbind(1), zz.unbind(1), zo.unbind(1)):
+        carry = _slstm_step(pf, carry, *t)
+        ys.append(carry[3])
+    return (torch.stack(ys, dim=1),) + tuple(carry)
+
+
 def slstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
                 state=None, decode=False):
     """The sLSTM block.  Prefill is a loop over S of ``_slstm_step`` (the
-    reference's ``lax.scan``), eager: about thirty small ops a token."""
+    reference's ``lax.scan``), eager: about thirty small ops a token; a
+    decode step is the loop over its one token.  On a mesh the loop runs
+    on each rank's batch rows under one ``local_map``."""
     B, S, d = x.shape
     hn = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
-    zi = (hn @ L.cast(p["wi"], rt)).float()
-    zf = (hn @ L.cast(p["wf"], rt)).float()
-    zz = (hn @ L.cast(p["wz"], rt)).float()
-    zo = (hn @ L.cast(p["wog"], rt)).float()
-    pf = {k2: p[k2].float() for k2 in ("ri", "rf", "rz", "ro")}
-    if state is None:
-        state = tuple(L.replicated_like(t, zi)
-                      for t in init_slstm_state(B, d, x.device))
-    if decode:
-        new_state = _slstm_step(pf, state, zi[:, 0], zf[:, 0], zz[:, 0],
-                                zo[:, 0])
-        y = new_state[3][:, None, :]
-    else:
-        carry, ys = state, []
-        for t in zip(zi.unbind(1), zf.unbind(1), zz.unbind(1),
-                     zo.unbind(1)):
-            carry = _slstm_step(pf, carry, *t)
-            ys.append(carry[3])
-        new_state = carry
-        y = torch.stack(ys, dim=1)
+    zs = tuple((hn @ L.cast(p[n], rt)).float()
+               for n in ("wi", "wf", "wz", "wog"))
+    args = zs + tuple(p[n].float() for n in ("ri", "rf", "rz", "ro")) \
+        + tuple(state or ())
+    outs = None
+    if rules is not None:
+        rows = rules.placements(rules.act_spec(("batch", None, None),
+                                               (B, S, d)))
+        st = L.moved(rows, {0: 0})
+        args = tuple(L.on(a, pl) for a, pl in zip(
+            args, (rows,) * 4 + (L.moved(rows, {}),) * 4 + (st,) * 4))
+        outs = (0, st, st, st, st)
+    y, *new_state = L.sharded_kernel(_slstm_scan, outs, *args)
     out = x + y.to(x.dtype) @ L.cast(p["wo"], rt)
     if want_state or decode:
-        return out, new_state
+        return out, tuple(new_state)
     return out
 
 
@@ -318,6 +366,9 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     logits = L.unembed(p["embed"], h[:, -1:], cfg, rt, rules)
     cache = {"m_h": mstates[0], "m_n": mstates[1], "s": tuple(sstates),
              "pos": int(batch["tokens"].shape[1])}
+    if rules is not None:
+        cache = L.constrain_tree(rules, cache, cache_shapes(
+            cfg, h.shape[0], max_seq, rt)[1])
     return logits, cache
 
 
@@ -329,6 +380,9 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     returned; when false the step works on a copy and the given cache is
     left as it was.  The results are the same either way."""
     h = L.embed(p["embed"], tokens, rt)
+    if rules is not None:
+        cache = L.constrain_tree(rules, cache, cache_shapes(
+            cfg, tokens.shape[0], 0, rt)[1])
     new = {"m_h": cache["m_h"], "m_n": cache["m_n"], "s": tuple(cache["s"])}
     if not rt.donate_buffers:
         new = {"m_h": new["m_h"].clone(), "m_n": new["m_n"].clone(),
@@ -339,8 +393,8 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
         xc, (h2, n2) = mlstm_block(mpp, xc, cfg, rt, rules, state=(hh, nn),
                                    decode=True)
         # the block's state slices are views of the cache: write in place
-        hh.copy_(h2)
-        nn.copy_(n2)
+        L.write_into(hh, h2)
+        L.write_into(nn, n2)
         return xc, None
 
     def group(x, args):
@@ -350,7 +404,7 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
         x, s_new = slstm_block(sp, x, cfg, rt, rules, state=tuple(s_st),
                                decode=True)
         for dst, src in zip(s_st, s_new):
-            dst.copy_(src)
+            L.write_into(dst, src)
         return x, None
 
     h, _ = scan_layers(group, h, (p["mblocks"], p["sblocks"], new["m_h"],

@@ -9,7 +9,10 @@ The cache is ``{"groups": {"ssm", "conv"}, "kv": {"k", "v"[, scales]},
 "pos": int[, "rem": {"ssm", "conv"}]}`` with the reference's stacked
 shapes: ``groups`` tensors lead with (groups, attn_every), ``kv`` with
 (groups,), ``rem`` with (remainder blocks,).  ``pos`` is a host integer,
-so no decode step reads the position back from the device.
+so no decode step reads the position back from the device.  On a mesh
+(``rules``) the cache's tensors are DTensors on the placements of their
+logical names (``cache_shapes``); decode writes each layer's new state
+and K/V into each rank's block of them.
 """
 from __future__ import annotations
 
@@ -145,8 +148,8 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
         x, states = scan_layers(inner, x, gp, unroll=rt.unroll_layers)
         hn = L.rmsnorm(x, sp["ln1"], rt, cfg.norm_eps)
         # k/v recomputed once for cache storage (cheap vs attention itself)
-        k = torch.einsum("bsd,dhk->bshk", hn, L.cast(sp["attn"]["wk"], rt))
-        v = torch.einsum("bsd,dhk->bshk", hn, L.cast(sp["attn"]["wv"], rt))
+        k = L.heads_in(hn, L.cast(sp["attn"]["wk"], rt))
+        v = L.heads_in(hn, L.cast(sp["attn"]["wv"], rt))
         k = L.rope(k, positions, cfg.rope_theta)
         x = _shared_block(sp, x, positions, cfg, rt, rules)
         kq, ks = L.quantize_kv(k, rt.kv_cache_dtype)
@@ -170,6 +173,9 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
                                       unroll=rt.unroll_layers)
     h = L.rmsnorm(h, p["final_norm"], rt, cfg.norm_eps)
     logits = L.unembed(p["embed"], h[:, -1:], cfg, rt, rules)
+    if rules is not None:
+        cache = L.constrain_tree(rules, cache,
+                                 cache_shapes(cfg, B, max_seq, rt)[1])
     return logits, cache
 
 
@@ -184,6 +190,10 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     results are the same either way."""
     h = L.embed(p["embed"], tokens, rt)
     pos = int(cache["pos"])
+    if rules is not None:
+        B, max_seq = tokens.shape[0], cache["kv"]["k"].shape[2]
+        cache = L.constrain_tree(rules, cache,
+                                 cache_shapes(cfg, B, max_seq, rt)[1])
     parts = ("groups", "kv", "rem")
     new = {k: dict(cache[k]) for k in parts if k in cache}
     if not rt.donate_buffers:
@@ -195,8 +205,8 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
         mp, mstate = margs
         out, st = mamba2.mamba_decode_block(mp, xc, mstate, cfg, rt, rules)
         # the layer's state slices are views of the cache: write in place
-        mstate["ssm"].copy_(st["ssm"])
-        mstate["conv"].copy_(st["conv"])
+        L.write_into(mstate["ssm"], st["ssm"])
+        L.write_into(mstate["conv"], st["conv"])
         return out, None
 
     def group(x, args):

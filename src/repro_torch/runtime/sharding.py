@@ -221,15 +221,23 @@ def _map_logical(fn, logical_tree, other):
     if isinstance(logical_tree, dict):
         return {k: _map_logical(fn, v, other[k])
                 for k, v in logical_tree.items()}
+    if isinstance(logical_tree, tuple):      # a tuple of leaves (xlstm's s)
+        return tuple(_map_logical(fn, v, o)
+                     for v, o in zip(logical_tree, other))
     return fn(logical_tree, other)
 
 
 def map_specs(fn, spec_tree, *others):
     """``fn(spec, *leaves)`` over a tree of specs and trees of the same
-    structure (a spec, a tuple, is a leaf)."""
+    structure (a spec, a tuple, is a leaf; where the first of ``others``
+    holds a tuple or a list, the specs there are one per element)."""
     if isinstance(spec_tree, dict):
         return {k: map_specs(fn, v, *(o[k] for o in others))
                 for k, v in spec_tree.items()}
+    if others and isinstance(others[0], (tuple, list)):
+        return type(others[0])(
+            map_specs(fn, s, *(o[i] for o in others))
+            for i, s in enumerate(spec_tree))
     return fn(spec_tree, *others)
 
 

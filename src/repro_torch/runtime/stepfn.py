@@ -60,9 +60,10 @@ train paths (notes ``explicit_comm`` and
 The step's parameters and state are DTensors on a mesh (a full tensor
 that every rank holds is cut to the rank's block on the way in).  Serve
 steps on a mesh run ``prefill_fn`` / ``decode_fn`` on DTensors with the
-rules; the kernels run on local blocks under ``local_map``.  The
-families whose serve steps on a mesh wait for slice 7b
-(``SERVE_WAITS``) raise there; every family trains on a mesh.
+rules, for every family; the kernels run on local blocks under
+``local_map``.  A decode step's cache is a DTensor on the placements of
+its logical names (``_cache_specs``; a batch of 1 splits the KV cache
+along its sequence on the data axes).
 """
 from __future__ import annotations
 
@@ -91,11 +92,7 @@ ONE_DEVICE_NO_OPS = ("shard_strategy", "grad_comm_dtype",
 # and, in an MoE cell, the expert-parallel paths' wire dtype (a knob) and
 # expert capacity (a config field): the one-device MoE path reads neither
 MOE_ONE_DEVICE_NO_OPS = ("comm_codec", "capacity_factor")
-SLICE_7B = "ROADMAP.md queue A, slice 7b"
 DRY_RUN = "ROADMAP.md queue A, slice 9: the dry run"
-# families whose serve steps on a mesh are not covered yet (their train
-# steps are, under every strategy)
-SERVE_WAITS = frozenset({"hybrid", "ssm", "encdec"})
 
 
 def mesh_size(mesh) -> int:
@@ -437,13 +434,7 @@ def _serve_params(model: Model, rt: TunableConfig):
 
 
 def _serve_rules(cfg, rt, mesh):
-    if one_device(mesh):
-        return None
-    if cfg.family in SERVE_WAITS:
-        raise NotImplementedError(
-            f"serving the {cfg.family} family ({cfg.name}) on a mesh is not "
-            f"ported yet ({SLICE_7B})")
-    return build_rules(mesh, cfg, rt)
+    return None if one_device(mesh) else build_rules(mesh, cfg, rt)
 
 
 def build_prefill_step(cfg: ArchConfig, shape: ShapeConfig,

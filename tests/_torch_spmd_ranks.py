@@ -43,7 +43,43 @@ def _moe_ranks(rank, params, xs):
         out[name] = dict(path=path, y=y.full_tensor().numpy(),
                          aux=float(aux.full_tensor()),
                          y_dense=y_dense.numpy(), aux_dense=float(aux_dense))
+    out["ep_gather_grad"] = _moe_grads(cfg, rt, mesh, p, xs[2], xs[3])
     return out
+
+
+def _moe_grads(cfg, rt, mesh, p, x, cot):
+    """The gradient of sum(y * cot) w.r.t. x and the router and expert
+    weights through ep_gather (tp on ``mesh``; the sequence of 3 does
+    not divide the model axis) and through the one-device dense path."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.runtime.sharding import ShardingRules, shard_tree
+    names = ("router", "wg", "wu", "wd")
+    rules = ShardingRules(mesh=mesh, strategy="tp")
+    x, cot = torch.from_numpy(x), torch.from_numpy(cot)
+    specs = rules.param_sharding_tree(
+        {k: s.logical for k, s in moe.moe_spec(cfg).items()}, p)
+    xspec = rules.act_spec(("batch", None, None), x.shape)
+
+    def grads(params, xx, rules_):
+        leaves = [xx] + [params[n] for n in names]
+        y, _ = moe.moe_mlp(params, xx, cfg, rt, rules_)
+        c = cot if rules_ is None else shard_tree(
+            {"c": cot}, {"c": xspec}, rules_)["c"]
+        return torch.autograd.grad((y * c).sum(), leaves)
+
+    with torch.enable_grad():
+        dp = {k: v.detach().requires_grad_() for k, v in shard_tree(
+            p, specs, rules).items()}
+        dx = shard_tree({"x": x}, {"x": xspec}, rules)["x"]
+        mesh_g = grads(dp, dx.detach().requires_grad_(), rules)
+        dense_g = grads({k: v.detach().requires_grad_() for k, v in
+                         p.items()}, x.clone().requires_grad_(), None)
+    keys = ("x",) + names
+    return {"path": moe._ep_paths_applicable(cfg, rules, x.shape[1]),
+            "mesh": {k: g.full_tensor().numpy()
+                     for k, g in zip(keys, mesh_g)},
+            "dense": {k: g.numpy() for k, g in zip(keys, dense_g)}}
 
 
 def _port_step(cfg, params, batch, rt, mesh, **kw):
@@ -251,9 +287,10 @@ def _family_ranks(rank, plan, mesh_shape, axes, B, S):
     mean|final_norm|,
     explicit_comm) of one step on one device and under each strategy on
     the mesh (``mesh_shape`` None: ``make_host_mesh()``, the mesh that
-    ``launch/train.py`` takes under torchrun), and the message a serve
-    step on the mesh (tp; dp where it has no model axis) raises where it
-    waits (None where it builds)."""
+    ``launch/train.py`` takes under torchrun), and how far a prefill on
+    the mesh (tp; dp where it has no model axis; f32, an f32 MoE wire,
+    the kernels' wrappers) moves the last token's logits from one device's (over the
+    largest magnitude, at least 1)."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.configs.base import ShapeConfig
@@ -273,7 +310,8 @@ def _family_ranks(rank, plan, mesh_shape, axes, B, S):
         g = torch.Generator()
         g.manual_seed(1)
         batch = synth_inputs(cfg, shape, default_config(), g)
-        params = build_model(cfg).init(0, device="cpu")
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
         res = {}
         for strat in ("one",) * (rank == 0) + tuple(strategies):
             rt = default_config(shard_strategy="dp" if strat == "one"
@@ -285,15 +323,24 @@ def _family_ranks(rank, plan, mesh_shape, axes, B, S):
             res[strat] = (float(met["loss"]),
                           float(full_tree(p2)["final_norm"].abs().mean()),
                           b.notes.get("explicit_comm"))
-        try:
-            # tp where the mesh has a model axis to split
-            serve = "tp" if "model" in mesh.mesh_dim_names else "dp"
-            stepfn.build_prefill_step(cfg, ShapeConfig("p", S, B, "prefill"),
-                                      default_config(shard_strategy=serve),
-                                      mesh)
-            res["serve"] = None
-        except NotImplementedError as e:
-            res["serve"] = str(e)
+        # a prefill through the kernels' wrappers on the mesh (tp where
+        # it has a model axis to split) against one device
+        serve = "tp" if "model" in mesh.mesh_dim_names else "dp"
+        pb = {k: v for k, v in batch.items() if k != "labels"}
+        logits = []
+        for m in (None, mesh):
+            # f32 on the MoE's wire too (its default is bf16)
+            rt = default_config(shard_strategy=serve, attn_impl="pallas",
+                                compute_dtype="float32",
+                                comm_codec="float32")
+            step = stepfn.build_prefill_step(
+                cfg, ShapeConfig("p", S, B, "prefill"), rt, m)
+            with torch.no_grad():
+                lg, _ = step.fn(model.cast_params(params, rt), pb)
+            logits.append(lg.full_tensor() if hasattr(lg, "full_tensor")
+                          else lg)
+        res["serve"] = float((logits[1] - logits[0]).abs().max()
+                             / max(1.0, float(logits[0].abs().max())))
         out[arch] = res
     return out
 
@@ -346,4 +393,140 @@ def _pipeline_ranks(rank):
         out[arch] = {k: (str(v.placements),
                          torch.equal(v.full_tensor(), one[k]))
                      for k, v in got.items()}
+    return out
+
+
+# ------------------------------------------------- serving on a mesh
+def _serve_one(model, rt, mesh, params, batch, gen: int, max_seq: int,
+               feed=None):
+    """Prefill ``batch`` and take ``gen`` decode steps through the serve
+    steps of ``stepfn``, on one device (``mesh`` None) or on ``mesh``:
+    each step feeds the next token of ``feed`` (default: greedy on this
+    run's own logits).  Returns the logits of each call and the last
+    cache gathered whole (as numpy), the cache itself and the tokens
+    fed."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.runtime import stepfn
+    from repro_torch.runtime.loops import tree_map
+    from repro_torch.runtime.sharding import full_tree
+    cfg = model.cfg
+    B = batch["tokens"].shape[0]
+    pre = stepfn.build_prefill_step(cfg, ShapeConfig("p", max_seq, B,
+                                                     "prefill"), rt, mesh)
+    dec = stepfn.build_decode_step(cfg, ShapeConfig("d", max_seq, B,
+                                                    "decode"), rt, mesh)
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    logits, cache = pre.fn(params, batch)
+    out, fed = [full(logits)], []
+    for i in range(gen):
+        nxt = out[-1].argmax(-1).to(torch.int32) if feed is None \
+            else feed[i]
+        fed.append(nxt)
+        logits, cache = dec.fn(params, cache, nxt)
+        out.append(full(logits))
+    whole = full_tree({k: v for k, v in cache.items() if k != "pos"})
+    return [o.float().numpy() for o in out], _numpy(tree_map(
+        lambda t: t.float() if t.dtype == torch.bfloat16 else t, whole)), \
+        cache, fed
+
+
+def _diffs(got, want):
+    """|difference| over the largest |value| of ``want`` (at least 1),
+    per leaf."""
+    from repro_torch.runtime.loops import tree_leaves
+    ga, wa = tree_leaves(got), tree_leaves(want)
+    assert len(ga) == len(wa)
+    return [float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()
+                  / max(1.0, np.abs(b.astype(np.float64)).max()))
+            for a, b in zip(ga, wa)]
+
+
+def _moved(params, seed):
+    """Every floating parameter moved by one f32 rounding unit (2^-23
+    relative, random signs), as tests/_torch_parity.ulp_floor moves them."""
+    import torch
+    from repro_torch.runtime.loops import tree_map
+    rng = np.random.RandomState(seed)
+
+    def move(t):
+        if not t.is_floating_point():
+            return t
+        signs = torch.from_numpy(rng.choice([-1.0, 1.0], size=t.shape))
+        return (t.double() * (1 + 2.0 ** -23 * signs)).to(t.dtype)
+    return tree_map(move, params)
+
+
+def _serve_case(rank, arch, rt_kw, B, S, gen, mesh, strategies, seed=3):
+    """For each strategy: the differences of a mesh's serve (logits per
+    call, each cache leaf) from the one-device serve (both fed the
+    one-device path's greedy tokens), the position, and each rank's
+    local shape of the KV cache's K; and the one-device path's floor:
+    how far the same numbers move under one rounding unit of the
+    parameters (the most over two draws)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.params import default_config
+    from repro_torch.models.model import build_model
+    cfg = get_reduced(arch)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, S // 2, cfg.d_model), generator=g)
+    one = default_config(**rt_kw)
+    params = model.cast_params(params, one)
+    want = _serve_one(model, one, None, params, batch, gen, S + gen)
+    out = {"floor": None}
+    if rank == 0:
+        floor = None
+        for draw in range(2):
+            moved = _serve_one(model, one, None, _moved(params, draw), batch,
+                               gen, S + gen, want[3])
+            now = (_diffs(moved[0], want[0]), _diffs(moved[1], want[1]))
+            floor = now if floor is None else tuple(
+                [max(a, b) for a, b in zip(f, n)] for f, n in zip(floor, now))
+        out["floor"] = {"logits": floor[0], "cache": floor[1]}
+    for strat in strategies:
+        rt = default_config(shard_strategy=strat, **rt_kw)
+        got = _serve_one(model, rt, mesh, params, batch, gen, S + gen,
+                         want[3])
+        # the KV cache's K: (layers, B, Smax, Hkv, hd)
+        k = (got[2].get("layers") or got[2].get("kv")
+             or got[2].get("self") or {}).get("k")
+        local = [None] * dist.get_world_size()
+        dist.all_gather_object(local, None if k is None else (
+            tuple(k.to_local().shape), str(k.placements)))
+        out[strat] = {"logits": _diffs(got[0], want[0]),
+                      "cache": _diffs(got[1], want[1]),
+                      "pos": (int(got[2]["pos"]), S + gen), "local": local,
+                      "full": None if k is None else tuple(k.shape)}
+    return out
+
+
+def _serve_all(rank, families, strategies, seq_plan):
+    """Every case of tests/test_torch_spmd_serve.py in one spawn of 4
+    ranks on a (2, 2) mesh: each family of ``families`` served (B 4) in
+    f32 under each strategy with both ``attn_impl`` values, and each
+    (arch, kv cache dtype) of ``seq_plan`` decoded at batch 1, its KV
+    cache split along its sequence on the data axis."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch in families:
+        for impl in ("pallas", "xla"):
+            kw = dict(compute_dtype="float32", attn_impl=impl,
+                      kv_cache_dtype="float32", donate_buffers=False)
+            out[(arch, impl)] = _serve_case(rank, arch, kw, 4, 8, 3, mesh,
+                                            strategies)
+    for arch, kv in seq_plan:
+        kw = dict(compute_dtype="float32", attn_impl="pallas",
+                  kv_cache_dtype=kv, donate_buffers=False)
+        # a prompt of 13 in a cache of 16 split in two blocks of 8: the
+        # live prefix crosses the split, and the steps write rows 13-15
+        out[("seq", arch, kv)] = _serve_case(rank, arch, kw, 1, 13, 3,
+                                             mesh, ("tp",))
     return out

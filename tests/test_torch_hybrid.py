@@ -252,8 +252,10 @@ def test_forward_carries_the_residual_in_the_save_dtype(save):
 def test_loss_fn_names_the_training_queue():
     """The hybrid loss is ported (tests/test_torch_hybrid_train.py holds
     it against the reference; on a mesh, tests/test_torch_spmd_families.py);
-    what the hybrid family cannot do yet, serving on a mesh of several
-    devices, raises naming its queue."""
+    serving on a mesh of several devices builds (held against one device
+    in tests/test_torch_spmd_serve.py), and what the hybrid family cannot
+    do yet, building a step for a mesh that no process holds, raises
+    naming its queue."""
     _, tcfg = cfgs("reduced")
     _, tp = weights("reduced")
     toks = torch.zeros((1, 9), dtype=torch.int32)
@@ -263,9 +265,13 @@ def test_loss_fn_names_the_training_queue():
     assert parts == {} and bool(torch.isfinite(loss))
     import types
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.runtime import stepfn
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  shape=(4, 2))
+    shape = ShapeConfig("p", 8, 1, "prefill")
+    bundle = stepfn.build_prefill_step(tcfg, shape, default_config(), mesh)
+    assert bundle.rules is not None and bundle.kind == "prefill"
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        stepfn.build_prefill_step(tcfg, ShapeConfig("p", 8, 1, "prefill"),
-                                  default_config(), mesh)
+        stepfn.build_prefill_step(tcfg, shape, default_config(),
+                                  AbstractMesh((4, 2), ("data", "model")))

@@ -361,8 +361,9 @@ def test_full_configs_build_and_train(arch):
 def test_expert_parallel_paths_raise_naming_their_slice():
     """The expert-parallel paths are ported (slice 7; on gloo ranks in
     tests/test_torch_spmd_families.py), chosen where the reference
-    chooses them; what they still cannot do, the gradient of
-    ep_gather's combine, raises naming its slice."""
+    chooses them.  ep_gather's gradient is ported too (held against the
+    reference's on 8 ranks in tests/test_torch_spmd.py): each model rank
+    takes 1/ep of the cotangent of the output it holds whole."""
     from repro.runtime.sharding import ShardingRules as JRules
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.runtime.sharding import ShardingRules
@@ -376,8 +377,11 @@ def test_expert_parallel_paths_raise_naming_their_slice():
             assert moe._ep_paths_applicable(cfg, t, S) == \
                 jmoe._ep_paths_applicable(cfg, j, S)
     assert moe._ep_paths_applicable(cfg, None, 32) is None
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        moe._GatherNoGrad.backward(None, torch.zeros(2))
+    x = torch.ones(3, requires_grad=True)
+    y = moe._SharedGrad.apply(x, 4)
+    y.sum().backward()
+    assert torch.equal(y.detach(), x.detach())
+    assert torch.equal(x.grad, torch.full((3,), 0.25))
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])

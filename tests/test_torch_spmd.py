@@ -55,7 +55,10 @@ def _moe_setup():
                                                   jax.random.PRNGKey(0)))
     rng = np.random.RandomState(1)
     xs = (rng.standard_normal((4, 32, cfg.d_model)).astype(np.float32),
-          rng.standard_normal((8, 1, cfg.d_model)).astype(np.float32))
+          rng.standard_normal((8, 1, cfg.d_model)).astype(np.float32),
+          # ep_gather's gradient: x and the cotangent of y (sequence 3)
+          rng.standard_normal((4, 3, cfg.d_model)).astype(np.float32),
+          rng.standard_normal((4, 3, cfg.d_model)).astype(np.float32))
     return cfg, params, xs
 
 
@@ -214,6 +217,66 @@ def test_moe_ep_paths_match_dense(spmd):
                 auxs.append(float(a))
         assert abs(r["aux"] - float(np.mean(auxs))) < 1e-6, (name, r["aux"],
                                                              auxs)
+
+
+_REFERENCE_GRAD = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from repro.core.params import default_config
+from repro.launch.mesh import make_mesh
+from repro.models import moe
+from repro.runtime.sharding import ShardingRules
+d = np.load(sys.argv[1])
+params = {k: jnp.asarray(d[k]) for k in ("router", "wg", "wu", "wd")}
+x, cot = jnp.asarray(d["x"]), jnp.asarray(d["cot"])
+from repro.configs import get_reduced
+cfg = get_reduced("olmoe-1b-7b").replace(capacity_factor=8.0)
+rt = default_config(compute_dtype="float32", comm_codec="float32")
+mesh = make_mesh((2, 4), ("data", "model"))
+rules = ShardingRules(mesh=mesh, strategy="tp")
+assert moe._ep_paths_applicable(cfg, rules, x.shape[1]) == "ep_gather"
+loss = lambda p, xx: jnp.sum(moe.moe_mlp(p, xx, cfg, rt, rules)[0] * cot)
+with mesh:
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, x)
+np.savez(sys.argv[2], x=np.asarray(gx),
+         **{k: np.asarray(v) for k, v in gp.items()})
+"""
+
+
+def test_moe_ep_gather_gradient_matches_reference(spmd, tmp_path):
+    """The gradient of ep_gather (tp on (2, 4); a sequence of 3, which
+    the model axis does not divide), w.r.t. the input, the router and
+    the three expert weights, held within 1e-4 of the reference's
+    ``jax.grad`` through its ``shard_map`` on 8 host devices (f32, an
+    f32 wire, capacity 8: nothing drops).  The reference's gradient is
+    its own dense gradient (factor 1: each model rank takes 1/ep of the
+    cotangent of the output it holds whole, and the input's gradient
+    sums the model ranks'), so the port's is held to the port's
+    one-device dense gradient too, within 1e-4."""
+    import os
+    import subprocess
+    import sys
+    cfg, params, xs = _moe_setup()
+    inp, res = tmp_path / "inputs.npz", tmp_path / "grads.npz"
+    np.savez(inp, x=xs[2], cot=xs[3], **params)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": os.path.join(root, "src"),
+           "JAX_PLATFORMS": os.environ.get("JAX_PLATFORMS", "cpu")}
+    out = subprocess.run([sys.executable, "-c", _REFERENCE_GRAD, str(inp),
+                          str(res)], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = np.load(res)
+    got = spmd["moe"]["ep_gather_grad"]
+    assert got["path"] == "ep_gather"
+    for k in ("x", "router", "wg", "wu", "wd"):
+        scale = float(np.abs(want[k]).max())
+        assert scale > 0, k
+        np.testing.assert_allclose(got["mesh"][k], want[k], atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
+        np.testing.assert_allclose(got["mesh"][k], got["dense"][k],
+                                   atol=1e-4, rtol=1e-4, err_msg=k)
 
 
 # ------------------------------------------- checkpoints across meshes

@@ -162,6 +162,66 @@ print(json.dumps({"shape": list(args[0].shape), "dtype": str(Y.dtype),
 """
 
 
+_FRESH_MODEL = r"""
+import json, pathlib, sys
+sys.path[:0] = [str(pathlib.Path(sys.argv[1]) / "src")]
+import torch
+from repro_torch.configs import get_reduced
+from repro_torch.core.params import default_config
+from repro_torch.models import layers as L, mamba2, xlstm
+from repro_torch.runtime.loops import tree_leaves
+rt = default_config(compute_dtype="float32", attn_impl="xla")
+g = torch.Generator().manual_seed(0)
+if sys.argv[2] == "mamba":
+    cfg = get_reduced("zamba2-7b")
+    p = L.init_params(mamba2.mamba_spec(cfg), g)
+    x = torch.randn(1024, 1, cfg.d_model, generator=g)
+    shp, _ = mamba2.mamba_cache_shapes(cfg, 1024, 1)
+    state = {k: torch.randn(s.shape[1:], generator=g) for k, s in shp.items()}
+    run = lambda: mamba2.mamba_decode_block(p, x, state, cfg, rt, None)
+else:
+    cfg = get_reduced("xlstm-1.3b")
+    p = L.init_params(xlstm.mlstm_spec(cfg), g)
+    x = torch.randn(2, 64, cfg.d_model, generator=g)
+    run = lambda: xlstm.mlstm_block(p, x, cfg, rt, None, want_state=True)
+with torch.no_grad():
+    first, again = run(), run()
+flat = lambda o: torch.cat([t.reshape(-1).double() for t in tree_leaves(o)])
+a, b = flat(first), flat(again)
+print(json.dumps({"err": float((a - b).abs().max() / b.abs().max())}))
+"""
+
+
+def test_eager_f32_exps_agree_in_a_fresh_process():
+    """ROADMAP.md queue C item 1, the rest of it: the eager f32 paths
+    whose first large f32 ``exp`` is the model's own, the Mamba2 decode
+    step (the reduced zamba2-7b at batch 1024: 8192 decay factors) and
+    the mLSTM's chunked prefill (the reduced xlstm-1.3b at (2, 64)), each
+    called twice on the same inputs in 10 fresh processes: the first
+    call's results agree with the second's within 2e-5 of their largest
+    magnitude.  Without the throwaway exp that importing
+    ``repro_torch.kernels`` takes (``models/layers`` imports it), a fresh
+    process's first f32 exp returned one block of 2048 at ~1.5e-4
+    relative error (``scripts/fresh_exp_probe.py``)."""
+    import json
+    import subprocess
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    runs = []
+    for mode in ("mamba", "mlstm"):
+        for _ in range(2):            # five processes at a time
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", _FRESH_MODEL, str(ROOT), mode],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env) for _ in range(5)]
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                assert p.returncode == 0, err[-3000:]
+                runs.append((mode, json.loads(out.strip().splitlines()[-1])))
+    assert len(runs) == 20
+    for mode, r in runs:
+        assert r["err"] < 2e-5, (mode, r)
+
+
 def test_tiled_f32_matches_f64_recurrence():
     """ROADMAP.md queue C item 1: the f32 CPU scan (``ssm_scan_tiled`` at
     the kernel's chunk, the wrappers' path on CPU tensors) against the
