@@ -52,7 +52,17 @@ card against the CPU at a cut depth, then timed steps at a cut depth;
 no kernel) and ``tune_steps`` (single-cell mode on
 ``smollm-135m:decode_card``, ``olmoe-1b-7b:prefill_card`` and
 ``xlstm-1.3b:long_500k``, a campaign over smollm's ``prefill_card`` and
-``train_card``).  Checkpoints, timing
+``train_card``), then ``roofline``: the analytic evaluator on one card
+(``core/trial.RooflineEvaluator``, the step counted on fake tensors) on
+each of those cells at its walk's baseline and winner, every term
+finite and the roofline at most 1.05 times the measured cost (a
+``{"roofline": [...]}`` line), and the dry run
+(``python -m repro_torch.launch.dryrun --arch smollm-135m
+--both-meshes --quiet``, a subprocess started after ``fabric`` with no
+card visible, beside ``train`` and ``train_families``; every record
+``ok`` or ``skip`` as ``shape_applicable`` says; its wall time in the
+phase's line); no kernel launches there.
+Checkpoints, timing
 caches and telemetry go to a fresh temporary directory, so no trial is
 replayed from an earlier run.  Any failure raises and the run exits
 non-zero.
@@ -61,7 +71,8 @@ the line before it is the card's name and power limit; the line before
 that is the ``{"kernels": [...]}`` record, whose ``launches`` sum every
 path's counts (``launches_by_path`` keeps them apart).
 
-Peak rates used for ``bound_ms`` (NVIDIA H100 SXM data sheet, dense):
+Peak rates used for ``bound_ms`` (NVIDIA H100 SXM data sheet, dense;
+``repro_torch/core/card.py``, the table the cost model reads too):
 3.35e12 bytes/s device memory; for operations the card's peak rate for
 the operands' type (``bound_rate`` in each record), whatever units the
 kernel itself uses: 989e12 op/s on the tensor cores for bf16 operands
@@ -108,8 +119,13 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "tf32x3": 495e12 / 3, "f32": 67e12}
+from repro_torch.core import card  # noqa: E402  (after the path above)
+
+# the card's rates, from the one table the cost model reads too
+# (core/card.py, with their sources)
+MEM_BYTES_PER_S = card.HBM_BYTES_PER_S
+PEAK_OPS = {"bf16": card.FLOPS_BF16, "tf32x3": card.FLOPS_TF32 / 3,
+            "f32": card.FLOPS_F32}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.int8: 2e-2}
 # flash_attention's two kernels, both on the tensor cores: bf16 operands,
 # and f32 operands as three TF32 products (flash_attention.cu is the
@@ -2832,6 +2848,143 @@ def phase_tune_steps(root: pathlib.Path) -> dict:
             "xlstm_single_cell": xl}
 
 
+# a lower bound cannot be slower than the card: each one-card roofline of
+# a measured step must read at most this share of the step's measured cost
+ROOFLINE_SLACK = 1.05
+# the dry run the smoke drives: one arch on both production meshes
+DRYRUN_ARCH = "smollm-135m"
+
+
+def phase_roofline(root: pathlib.Path) -> list:
+    """The analytic evaluator on one card (``core/trial.RooflineEvaluator``
+    with a mesh factory that gives no mesh) on each step cell that
+    ``tune_steps`` walked, at the walk's baseline config and at its
+    winner's, read from the walks' reports under ``root`` (no new
+    measured trial).  Each row: the roofline's terms, its bottleneck and
+    predicted peak, the cost and peak the walk measured for that config,
+    and measured / roofline.  Fails on a term that is not finite, on a
+    count that raised, or where the roofline reads more than
+    ``ROOFLINE_SLACK`` times the measured cost."""
+    import math
+
+    from repro_torch.core.history import config_from_dict
+    from repro_torch.core.trial import (CompileCache, RooflineEvaluator,
+                                        Workload)
+    ev = RooflineEvaluator(mesh_factory=lambda multi_pod=False: None,
+                           compile_cache=CompileCache(root / "roofline"))
+    rows = []
+    for path in sorted(root.rglob("reports/*.json")):
+        rep = json.loads(path.read_text())
+        arch, shape, _ = rep["workload"].split("__")
+        for role, config in (("baseline", rep["log"][0]["config"]),
+                             ("winner", rep["final_config"])):
+            measured = next(e["result"] for e in rep["log"]
+                            if e["config"] == config
+                            and not e["result"]["crashed"])
+            t0 = time.time()
+            res = ev(Workload(arch, shape), config_from_dict(config))
+            if res.error:
+                raise AssertionError(f"roofline: {rep['workload']} {role}: "
+                                     f"{res.error}")
+            rl = res.roofline
+            terms = [rl["compute_s"], rl["memory_s"], rl["collective_s"],
+                     res.peak_bytes]
+            if not all(math.isfinite(t) for t in terms):
+                raise AssertionError(f"roofline: {rep['workload']} {role}: "
+                                     f"a term is not finite: {rl}")
+            row = {"cell": rep["workload"], "config": role,
+                   "compute_dtype": config["compute_dtype"],
+                   "attn_impl": config["attn_impl"],
+                   "total_s": rl["total_s"], "bottleneck": rl["bottleneck"],
+                   "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+                   "collective_s": rl["collective_s"],
+                   "flops_per_chip": rl["flops_per_chip"],
+                   "predicted_peak_bytes": res.peak_bytes,
+                   "measured_cost_s": measured["cost_s"],
+                   "measured_peak_bytes": measured.get("peak_bytes"),
+                   "measured_over_roofline":
+                       measured["cost_s"] / rl["total_s"],
+                   "compiles": res.compiles,
+                   "s": round(time.time() - t0, 2)}
+            rows.append(row)
+            if rl["total_s"] > ROOFLINE_SLACK * measured["cost_s"]:
+                raise AssertionError(
+                    f"roofline: {rep['workload']} {role}: the bound "
+                    f"{rl['total_s']} s is above {ROOFLINE_SLACK} x the "
+                    f"measured {measured['cost_s']} s")
+    cells = {r["cell"] for r in rows}
+    if len(cells) != 5:
+        raise AssertionError(f"roofline: {len(cells)} step cells, not 5: "
+                             f"{sorted(cells)}")
+    return rows
+
+
+def start_dryrun(root: pathlib.Path):
+    """Start ``python -m repro_torch.launch.dryrun --arch <DRYRUN_ARCH>
+    --both-meshes --quiet`` as a user runs it, in a process of its own
+    (its fake process group must not meet the ``mesh`` phase's NCCL
+    group), on the host only (no card visible), its output to a file
+    under ``root``.  It runs on one of the host's cores, at the lowest
+    priority, beside the phases that follow it: ``train`` and
+    ``train_families``, whose steps on the card are device-bound and
+    whose steps on the CPU would otherwise share a core with it.  Run
+    alone it would add its whole time to the smoke's.  Returns
+    (process, start, output path)."""
+    results = ROOT / "results" / "torch" / "dryrun"
+    for old in results.glob(f"{DRYRUN_ARCH}__*.json"):
+        old.unlink()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [x for x in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if x]))
+    out = root / "dryrun.out"
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+             "--both-meshes", "--quiet"],
+            stdout=f, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+    return proc, time.time(), out
+
+
+def phase_dryrun(proc, t0: float, out: pathlib.Path,
+                 timeout: float = 300) -> dict:
+    """Wait for the dry run :func:`start_dryrun` started: it must exit 0
+    with every record ``ok``, or ``skip`` where ``shape_applicable``
+    says so.  Returns its wall time (its start to its last record) and
+    the status of each record."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    try:
+        proc.wait(timeout=max(1.0, t0 + timeout - time.time()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"dryrun: ran past {timeout} s: "
+                             f"{out.read_text()[-2000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: exit {proc.returncode}: "
+                             f"{out.read_text()[-3000:]}")
+    cfg = get_config(DRYRUN_ARCH)
+    results = ROOT / "results" / "torch" / "dryrun"
+    statuses, last = {}, t0
+    for shape in SHAPES:
+        want = "ok" if shape_applicable(cfg, SHAPES[shape])[0] else "skip"
+        for mesh in ("pod_16x16", "multipod_2x16x16"):
+            path = results / f"{DRYRUN_ARCH}__{shape}__{mesh}.json"
+            rec = json.loads(path.read_text())
+            last = max(last, path.stat().st_mtime)
+            if rec["status"] != want:
+                raise AssertionError(f"dryrun: {shape} {mesh}: "
+                                     f"{rec['status']}, not {want}: "
+                                     f"{rec.get('error')}")
+            statuses[f"{shape}/{mesh}"] = (
+                rec["status"] if want == "skip" else
+                {"status": "ok", "s": rec["compile_s"],
+                 "total_s": rec["roofline"]["total_s"],
+                 "bottleneck": rec["roofline"]["bottleneck"],
+                 "peak_bytes": rec["memory_analysis"]["peak_bytes"]})
+    return {"wall_s": round(last - t0, 1), "arch": DRYRUN_ARCH,
+            "records": statuses}
+
+
 # the fleet's cells (``fabric`` phase): the four kernel cells and the
 # serve cell on the reduced config's tiny trace; (ii) kills a worker
 # over the kernel cells and has another steal its lease
@@ -3121,27 +3274,54 @@ def main(argv=None) -> int:
         result = phase_fabric(pathlib.Path(root))
         by_path["fabric"] = None
         emit("fabric", **result)
-        # training launches no kernel (the step runs the eager ops: the
-        # kernels are forward-only, as the reference's are); the step
-        # cells' prefill and decode trials launch three
-        for path, run, expect in (
-                ("train", phase_train,
-                 {name: 0 for name in counters()}),
-                ("train_families", phase_train_families,
-                 {name: 0 for name in counters()}),
-                ("tune_steps", phase_tune_steps,
-                 {"rmsnorm": 1, "flash_attention": 1, "flash_decode": 1})):
+        # the dry run works on the host only: it runs beside the phases
+        # that follow, and phase ``roofline`` waits for it
+        dry = start_dryrun(pathlib.Path(root))
+        try:
+            # training launches no kernel (the step runs the eager ops:
+            # the kernels are forward-only, as the reference's are); the
+            # step cells' prefill and decode trials launch three
+            for path, run, expect in (
+                    ("train", phase_train,
+                     {name: 0 for name in counters()}),
+                    ("train_families", phase_train_families,
+                     {name: 0 for name in counters()}),
+                    ("tune_steps", phase_tune_steps,
+                     {"rmsnorm": 1, "flash_attention": 1,
+                      "flash_decode": 1})):
+                for mod in counters().values():
+                    mod.launches = 0
+                result = run(pathlib.Path(root) / path)
+                by_path[path] = got = {name: mod.launches
+                                       for name, mod in counters().items()}
+                emit(path, launches=got, **result)
+                for name, want in expect.items():
+                    if (got[name] != 0) if want == 0 \
+                            else (got[name] < want):
+                        raise AssertionError(f"{path}: {name} launched "
+                                             f"{got[name]} times")
+                torch.cuda.empty_cache()
+            # the analytic evaluator on the step cells just measured
+            # (counted on fake CPU tensors: it launches no kernel), then
+            # the dry run
             for mod in counters().values():
                 mod.launches = 0
-            result = run(pathlib.Path(root) / path)
-            by_path[path] = got = {name: mod.launches
-                                   for name, mod in counters().items()}
-            emit(path, launches=got, **result)
-            for name, want in expect.items():
-                if (got[name] != 0) if want == 0 else (got[name] < want):
-                    raise AssertionError(f"{path}: {name} launched "
-                                         f"{got[name]} times")
-            torch.cuda.empty_cache()
+            t_roof = time.time()
+            rows = phase_roofline(pathlib.Path(root) / "tune_steps")
+            roof_s = time.time() - t_roof
+            dryrun = phase_dryrun(*dry)
+            by_path["roofline"] = got = {
+                name: mod.launches for name, mod in counters().items()}
+            if any(got.values()):
+                raise AssertionError(f"roofline: kernels launched: {got}")
+            print(json.dumps({"roofline": rows}), flush=True)
+            emit("roofline", launches=got, roofline_s=round(roof_s, 1),
+                 waited_s=round(time.time() - t_roof - roof_s, 1),
+                 dryrun=dryrun)
+        finally:
+            if dry[0].poll() is None:    # a phase failed before the wait
+                dry[0].kill()
+                dry[0].wait()
     for rec in records:
         rec["launches_by_path"] = {
             a: None if got is None else got[rec["name"]]

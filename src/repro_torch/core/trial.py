@@ -9,9 +9,11 @@ the failure taxonomy, ``TrialResult``, ``Workload``, the two-level
 ``TrialRunner`` are the same, so trial logs, checkpoints and history
 rows are byte-identical between the packages.  Step cells
 (``arch:shape``) are evaluated by :class:`WallClockEvaluator`, the
-median of real steps on one device; the analytic
-``RooflineEvaluator`` comes with slice 8 of ROADMAP.md queue A and
-raises ``NotImplementedError`` when it is built.  Kernel and serve cells
+median of real steps on one device, or, where a caller names it
+(``tune --evaluator repro_torch.core.trial:RooflineEvaluator``), by
+:class:`RooflineEvaluator`: the calibrated roofline of the step counted
+on fake tensors (``core/stepcount.count_cell``) for the production mesh
+over a fake process group, or for one card.  Kernel and serve cells
 are evaluated by ``core/kernel_cell.KernelBenchEvaluator`` and
 ``serving/evaluator.ServeEvaluator``.  Every evaluator takes its device
 through :func:`hold_device`; the executor's deadline counts a trial's
@@ -26,6 +28,7 @@ import collections
 import contextlib
 import dataclasses
 import fcntl
+import hashlib
 import json
 import math
 import os
@@ -127,8 +130,9 @@ class Workload:
 
 
 class CompileCache:
-    """Two-level memo of measurements (in the port, the measured tier's
-    timing cache, core/measure.TimingCache, is its one user).
+    """Two-level memo of measurements: :class:`RooflineEvaluator`'s
+    calibration counts, and the measured tier's timing cache
+    (core/measure.TimingCache) builds on it.
 
     Level 1 is an in-memory LRU (per process); level 2 is the disk cache
     under ``results/torch/trials/compiles`` unless a directory is given.
@@ -256,13 +260,198 @@ class CompileCache:
 
 
 class RooflineEvaluator:
-    """The reference's analytic evaluator (XLA ``cost_analysis`` of a
-    production-mesh compile).  Not ported: it comes with slice 8."""
+    """cost = calibrated analytic roofline seconds of the step on the H100.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RooflineEvaluator is not ported yet (ROADMAP.md queue A, "
-            "slice 8: the analytic evaluator)")
+    The reference's evaluator (``src/repro/core/trial.py``), on the
+    port's counter: each calibration point's step is built for the mesh
+    (by default the production mesh over a fake process group,
+    ``launch/mesh.fake_production_mesh``; a factory that returns None
+    gives one card) and counted once on fake tensors
+    (``core/stepcount.count_cell``).  As in the reference, two small
+    variants (1 and 3 layer-units) are counted and every term is
+    extrapolated to the true depth (core/costmodel.calibration_points),
+    which makes a trial far cheaper than counting the full stack.
+
+    The calibration counts are memoized in a :class:`CompileCache` (its
+    disk level under ``results/torch/trials/compiles``) keyed by
+    ``TunableConfig.compile_key()`` — configs that differ only in
+    analytic knobs share one set of counts — under the reference's keys.
+    The reference compiles each point twice, unrolled for the compute
+    and collective terms and scanned for the peak (buffer reuse shows
+    only there); the port's layer loop is one eager program either way,
+    so it counts each point once and reads all three terms from it:
+    ``compiles`` is 2 where the reference's is 4.  Off every default
+    path: ``tune --evaluator repro_torch.core.trial:RooflineEvaluator``
+    names it.
+    """
+
+    def __init__(self, mesh_factory: Callable = None, use_cache: bool = True,
+                 hbm_limit: float = None,
+                 compile_cache: Optional[CompileCache] = None):
+        from repro_torch.core import costmodel
+        from repro_torch.launch.mesh import fake_production_mesh
+        self._mesh_factory = mesh_factory or fake_production_mesh
+        self.use_cache = use_cache
+        self.hbm_limit = hbm_limit or costmodel.HW["hbm_per_chip"]
+        self.compile_cache = compile_cache or \
+            (CompileCache() if use_cache else
+             CompileCache(use_disk=False, mem_entries=0))
+        # per-trial accounting shared across threads
+        self._acct = threading.local()
+        self.total_compiles = 0
+        self._count_lock = threading.Lock()
+
+    # ------------------------------------------------------------- keys
+    def _compile_id(self, wl: Workload, mesh, point_units: int,
+                    rt_variant: TunableConfig) -> str:
+        from repro_torch.launch.mesh import axis_sizes
+        ck = rt_variant.compile_key(kind=wl.shp.kind, family=wl.cfg.family)
+        # mesh axis ORDER matters for sharding — keep it in the key
+        blob = json.dumps([wl.key(), point_units,
+                           list(axis_sizes(mesh).items()),
+                           ck], sort_keys=True, default=str)
+        h = hashlib.sha1(blob.encode()).hexdigest()[:16]
+        return f"{wl.key()}__u{point_units}__{h}"
+
+    # --------------------------------------------------------- compiles
+    def _count_at(self, cfg, shape, rt: TunableConfig, mesh) -> Dict:
+        from repro_torch.core import costmodel, stepcount
+        count, _ = stepcount.count_cell(cfg, shape, rt, mesh)
+        rl = costmodel.roofline_of(count, compute_dtype=rt.compute_dtype)
+        return {"roofline": rl.as_dict(),
+                "square_free_peak": float(count.square_free_peak)}
+
+    def _measured(self, wl: Workload, mesh, point_cfg, units_tag: int,
+                  rt_variant: TunableConfig):
+        """One memoized calibration count -> (Roofline, its peak without
+        the (S, S) attention squares); raises the memoized error if this
+        program deterministically fails."""
+        from repro_torch.core import costmodel
+        key = self._compile_id(wl, mesh, units_tag, rt_variant)
+        built = []
+
+        def build() -> Dict:
+            built.append(True)
+            with _telemetry.current().span("compile", cell=wl.key(),
+                                           key=key) as sp:
+                t0 = time.time()
+                try:
+                    entry = self._count_at(point_cfg, wl.shp, rt_variant,
+                                           mesh)
+                    entry["compile_s"] = round(time.time() - t0, 2)
+                    return entry
+                except Exception as e:
+                    # classify BEFORE memoizing: only deterministic program
+                    # failures may be remembered (the cache skips transient
+                    # entries), so an OSError from the disk cache is not
+                    # permanently recorded as a crashed program
+                    sp.note(error=True)
+                    return {"error": f"{type(e).__name__}: {e}"[:500],
+                            "failure": classify_exception(e),
+                            "compile_s": round(time.time() - t0, 2)}
+
+        entry = self.compile_cache.get_or_build(key, build)
+        acct = self._trial_acct()
+        acct["cache_reads"] += 1
+        if built:
+            acct["compiles"] += 1
+            acct["compile_s"] += entry.get("compile_s", 0.0)
+            with self._count_lock:
+                self.total_compiles += 1
+        if "error" in entry:
+            raise TrialError(entry["error"],
+                             failure=entry.get("failure",
+                                               FAILURE_DETERMINISTIC))
+        return (costmodel.roofline_from_dict(entry["roofline"]),
+                entry["square_free_peak"])
+
+    def _trial_acct(self) -> Dict[str, Any]:
+        if not hasattr(self._acct, "d"):
+            self._acct.d = {"compiles": 0, "compile_s": 0.0,
+                            "cache_reads": 0}
+        return self._acct.d
+
+    # ------------------------------------------------------------ trial
+    def calibrated_roofline(self, wl: Workload, rt: TunableConfig):
+        """Compute + collective terms and the PEAK memory from two small
+        counts; the MEMORY term from the first-principles analytic
+        traffic model (as in the reference).  Every knob (remat /
+        microbatch / dtypes / donation) enters as in the reference; the
+        flash kernel (``attn_impl="pallas"`` prefill) as the port runs
+        it: in the compute term its causal half of the S x S products at
+        its products' rate (``costmodel.flash_kernel_flops``), in the
+        memory term its K/V read once (``costmodel.port_memory_bytes``),
+        and in the peak the counted peak without the eager path's
+        (S, S) squares.  A train step is priced with eager attention,
+        which the port's runs."""
+        from repro_torch.core import costmodel
+        from repro_torch.launch.mesh import axis_sizes
+        if wl.shp.kind == "train":
+            # the port's train step runs the eager attention whatever the
+            # config says (the kernels are forward-only: runtime/stepfn),
+            # so no flash correction applies to it
+            rt = rt.replace(attn_impl="xla")
+        mesh = self._mesh_factory(multi_pod=wl.multi_pod)
+        points, units = costmodel.calibration_points(wl.cfg)
+        # the calibration counts run eager attention, as the reference's
+        # compiles do; one count a point (the class docstring says why)
+        rt_count = rt.replace(unroll_layers=True, attn_impl="xla")
+        r1, sq1 = self._measured(wl, mesh, points[0][0], 1, rt_count)
+        r3, sq3 = self._measured(wl, mesh, points[1][0], 3, rt_count)
+        rl = costmodel.extrapolate_roofline(r1, r3, units)
+        sizes = axis_sizes(mesh)
+        data_size = 1
+        for a in ("pod", "data"):
+            data_size *= sizes.get(a, 1)
+        model_size = sizes.get("model", 1)
+        mem_bytes = costmodel.port_memory_bytes(
+            wl.cfg, wl.shp, rt, data_size, model_size)
+        flops, compute_s = rl.flops_per_chip, rl.compute_s
+        peak = rl.peak_mem_bytes
+        if rt.attn_impl == "pallas" and wl.shp.kind == "prefill":
+            # the kernel path holds what the eager path held but its
+            # (S, S) scores, probabilities and mask
+            peak = costmodel.extrapolate(sq1, sq3, units)
+            # the flash kernel computes the causal half of the S x S
+            # products, at its products' rate
+            eager, kernel = costmodel.flash_kernel_flops(
+                wl.cfg, wl.shp, rt, data_size, model_size)
+            bf16 = rt.compute_dtype != "float32"
+            rate = costmodel.HW["flops_bf16" if bf16 else "flops_f32"]
+            k_rate = costmodel.HW["flops_bf16" if bf16 else "flops_tf32x3"]
+            flops = max(0.0, flops - eager) + kernel
+            compute_s = max(0.0, compute_s - eager / rate) + kernel / k_rate
+        return dataclasses.replace(
+            rl, compute_s=compute_s, flops_per_chip=flops,
+            memory_s=mem_bytes / costmodel.HW["hbm_bw"],
+            bytes_per_chip=mem_bytes, peak_mem_bytes=peak)
+
+    def __call__(self, wl: Workload, rt: TunableConfig) -> TrialResult:
+        acct = self._trial_acct()
+        acct["compiles"], acct["compile_s"] = 0, 0.0
+        acct["cache_reads"] = 0
+        try:
+            rl = self.calibrated_roofline(wl, rt)
+            peak = rl.peak_mem_bytes
+            fits = peak is None or peak <= self.hbm_limit
+            res = TrialResult(cost_s=rl.total_s, crashed=not fits,
+                              roofline=rl.as_dict(), peak_bytes=peak,
+                              fits_hbm=fits,
+                              failure="" if fits else FAILURE_DETERMINISTIC)
+        except Exception as e:
+            # TrialError already carries the stored "TypeName: msg"
+            err = str(e) if isinstance(e, TrialError) \
+                else f"{type(e).__name__}: {e}"
+            res = TrialResult(cost_s=float("inf"), crashed=True,
+                              error=err[:500],
+                              failure=classify_exception(e))
+        res.compiles = acct["compiles"]
+        res.compile_s = round(acct["compile_s"], 1)
+        # "served from cache" requires the trial to have actually reached
+        # a cache lookup — a trial that dies before any calibration
+        # count (e.g. in the mesh factory) was not cached, it crashed
+        res.cached = acct["compiles"] == 0 and acct["cache_reads"] > 0
+        return res
 
 
 class WallClockEvaluator:

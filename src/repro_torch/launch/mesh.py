@@ -14,7 +14,13 @@ the environment that ``torchrun`` sets (``env://``).
 
 ``AbstractMesh`` is a mesh that no process holds: axis names and sizes
 only.  ``runtime.sharding.ShardingRules`` computes its specs from it,
-so a 16x16 mesh's rules can be asked on one process.
+so a 16x16 mesh's rules can be asked on one process.  To build and run
+a step for such a mesh (the dry run, the analytic evaluator),
+``fake_mesh`` starts the ``"fake"`` process-group backend at rank 0 of
+a world of the mesh's size, whose collectives do nothing, and returns a
+``DeviceMesh`` on the CPU device type over it; the step then runs on
+fake tensors (``core/stepcount``).  ``fake_production_mesh`` is the
+production mesh built that way.
 """
 from __future__ import annotations
 
@@ -44,7 +50,9 @@ class AbstractMesh:
 
 def axis_sizes(mesh) -> Dict[str, int]:
     """``{axis: size}`` of a ``DeviceMesh``, an ``AbstractMesh`` or a
-    mapping of axis sizes."""
+    mapping of axis sizes; of no mesh (one device), ``{}``."""
+    if mesh is None:
+        return {}
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, (int(s) for s in mesh.shape)))
@@ -136,3 +144,46 @@ def make_host_mesh(model: Optional[int] = None,
     """A (data, model) mesh over every rank of the process group."""
     data, model = host_mesh_shape(world_size(), model)
     return make_mesh((data, model), ("data", "model"), device_type)
+
+
+def fake_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` on the CPU device type that no
+    process holds: this process is rank 0 of a ``"fake"`` process group
+    of ``prod(shape)`` ranks (started here; restarted at another size
+    when a mesh of another size is asked for).  Refuses in a process
+    whose group is a real one."""
+    from repro_torch import compat
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                "a mesh that no process holds needs the fake process "
+                f"group, and this process runs a real one "
+                f"({dist.get_backend()}, {dist.get_world_size()} ranks)")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=compat.fake_store(), rank=0,
+                                world_size=n)
+    return make_mesh(tuple(shape), tuple(axes), "cpu")
+
+
+def fake_production_mesh(multi_pod: bool = False):
+    """The production mesh, (data=16, model=16) or (pod=2, data=16,
+    model=16), over a fake process group (:func:`fake_mesh`)."""
+    if multi_pod:
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return fake_mesh((16, 16), ("data", "model"))
+
+
+def as_device_mesh(mesh):
+    """``mesh`` itself where it is a ``DeviceMesh`` (or None, or holds one
+    device); a mesh that no process holds (an ``AbstractMesh`` or a
+    mapping of axis sizes) of more than one device as the same shape
+    over the fake process group (:func:`fake_mesh`)."""
+    if mesh is None or hasattr(mesh, "mesh_dim_names"):
+        return mesh
+    sizes = axis_sizes(mesh)
+    if math.prod(sizes.values()) <= 1:
+        return mesh
+    return fake_mesh(tuple(sizes.values()), tuple(sizes))

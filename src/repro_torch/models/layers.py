@@ -87,7 +87,7 @@ def sharded_kernel(fn, out, *args):
     if not any(is_dtensor(a) for a in args):
         return fn(*args)
     from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.compat import local_map
     # a pending sum is reduced first: ``fn`` sees whole values
     args = tuple(_reduced(a) if is_dtensor(a) else a for a in args)
     mesh = next(a for a in args if is_dtensor(a)).device_mesh
@@ -235,6 +235,16 @@ def dt(rt: TunableConfig) -> torch.dtype:
 
 def cast(x, rt: TunableConfig):
     return x.to(dt(rt))
+
+
+def pad_rows(t, dim: int, pad: int):
+    """``t`` zero-padded by ``pad`` rows at the end of ``dim`` (a prefill's
+    cache to its full length), contiguous.  No rows to add is no pad:
+    torch 2.11's DTensor cannot plan a zero pad of a tensor split on a
+    (16, 16) mesh."""
+    if pad == 0:
+        return t.contiguous()
+    return F.pad(t, (0, 0) * (t.ndim - 1 - dim) + (0, pad)).contiguous()
 
 
 # ---------------------------------------------------------------- norms
@@ -587,7 +597,7 @@ def embed(p, tokens, rt: TunableConfig):
     # a vocab split stays split (rows outside the rank's slice read 0 and
     # the ranks' rows are summed), an embed split is gathered
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.compat import local_map
     mesh = table.device_mesh
     tokens = replicated_like(tokens, table)
     keep = [p.is_shard(0) and not t.is_shard()
@@ -663,7 +673,7 @@ def _gold_logit(logits, labels):
     it from its block of the vocab (0 where the label lies outside its
     slice) and the ranks' values are summed (a partial placement)."""
     from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.compat import local_map
     last = logits.ndim - 1
     pl = tuple(logits.placements)
     if not any(p.is_shard(last) for p in pl):

@@ -303,7 +303,7 @@ def _dense_on_mesh(p, x, cfg, rt, rules):
     it: the per-expert router statistics are averaged over the ranks
     that hold other tokens before the product."""
     from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.compat import local_map
     mesh = rules.mesh
     split = [i for i, pl in enumerate(x.placements) if pl.is_shard()]
     groups = [mesh.get_group(i) for i in split]
@@ -327,7 +327,7 @@ def _dense_on_mesh(p, x, cfg, rt, rules):
 
 def _ep_moe(p, x, cfg, rt, rules, path: str):
     from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.compat import local_map
     mesh = rules.mesh
     names = list(mesh.mesh_dim_names)
     ep = rules.model_axis_size()

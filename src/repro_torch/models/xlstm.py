@@ -93,14 +93,18 @@ def _mlstm_chunked(q, k, v, ig, lf, chunk: int, state=None):
         n = torch.zeros((Bsz, H, hd), dtype=f32, device=q.device)
     else:
         h, n = state
+    # each chunk's slices by unbind: their backward stacks the chunks'
+    # gradients once (indexing chunk by chunk would add a zero-filled
+    # gradient of the whole tensor per chunk, quadratic in the chunks)
     y_inter, nn_inter = [], []
-    for c in range(nc):
-        dec = torch.exp(cum[:, c])                        # (B,Q,H)
-        y_inter.append(torch.einsum("bqhn,bqh,bhpn->bqhp", qc[:, c], dec,
-                                    h))
-        nn_inter.append(torch.einsum("bqhn,bqh,bhn->bqh", qc[:, c], dec, n))
-        h = a_chunk[:, c][:, :, None, None] * h + Sc[:, c]
-        n = a_chunk[:, c][:, :, None] * n + Nc[:, c]
+    for q_c, cum_c, a_c, s_c, n_c in zip(qc.unbind(1), cum.unbind(1),
+                                         a_chunk.unbind(1), Sc.unbind(1),
+                                         Nc.unbind(1)):
+        dec = torch.exp(cum_c)                            # (B,Q,H)
+        y_inter.append(torch.einsum("bqhn,bqh,bhpn->bqhp", q_c, dec, h))
+        nn_inter.append(torch.einsum("bqhn,bqh,bhn->bqh", q_c, dec, n))
+        h = a_c[:, :, None, None] * h + s_c
+        n = a_c[:, :, None] * n + n_c
     y = y_intra + torch.stack(y_inter, dim=1)             # (B,nc,Q,H,hd)
     # normalizer: q . n  (intra part from n_intra, inter part nn_inter)
     qn = torch.einsum("bcqhn,bcqhn->bcqh", qc, n_intra) \
@@ -165,8 +169,13 @@ def mlstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
         (lambda *a: _flat_chunked(cfg.ssm_chunk, *a))
     y, *new_state = L.sharded_kernel(step, outs, *args)
     if rules is not None:
-        y = L.on(y, L.moved(y.placements, {0: 0}))
-    y = y.reshape(B, S, d).to(x.dtype) * og
+        # its rows only, and its gradient brought back to them: split
+        # along d, it would not unflatten into heads that do not divide
+        # the model axis (xlstm-1.3b's 4 on 16)
+        y = L.pin(L.on(y, L.moved(y.placements, {0: 0})).reshape(B, S, d))
+    else:
+        y = y.reshape(B, S, d)
+    y = y.to(x.dtype) * og
     out = x + y @ L.cast(p["wo"], rt)
     if want_state or decode:
         return out, tuple(new_state)

@@ -19,7 +19,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.params import TunableConfig
 from repro_torch.models import layers as L
@@ -162,7 +161,7 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     pad = max_seq - S
 
     def pad_seq(t):        # (g,B,S,Hkv,x) -> zero-padded to max_seq
-        return F.pad(t, (0, 0, 0, 0, 0, pad)).contiguous()
+        return L.pad_rows(t, 2, pad)
     kv = {"k": pad_seq(extras[0]), "v": pad_seq(extras[1])}
     if len(extras) == 4:
         kv["k_scale"] = pad_seq(extras[2])

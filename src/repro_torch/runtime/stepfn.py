@@ -31,8 +31,11 @@ leaf) or the cache (decode) in place and returns the same tensors;
 false returns new tensors and leaves the inputs as they were.
 
 ``mesh`` is None (this one device), a ``DeviceMesh`` (``launch/mesh``)
-or a mesh no process holds (``launch.mesh.AbstractMesh``, a mapping of
-axis sizes).  A mesh of one device keeps the one-device step above
+or a mesh no process holds (``launch.mesh.AbstractMesh``).  The step of
+an ``AbstractMesh`` of more than one device is built on a mesh of its
+shape over the fake process group (``launch.mesh.fake_mesh``), with the
+same rules, specs and notes as a real mesh of that shape: the dry run
+and the analytic evaluator run it on fake tensors (``core/stepcount``).  A mesh of one device keeps the one-device step above
 (``rules`` None, the same notes, the same cost: the reference runs a
 (1, 1) mesh through its auto path, which is numerically the same).  On
 one device ``shard_strategy``, ``grad_comm_dtype`` and
@@ -75,7 +78,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.params import TunableConfig
-from repro_torch.launch.mesh import axis_sizes
+from repro_torch.launch.mesh import as_device_mesh, axis_sizes
 from repro_torch.models import layers as L
 from repro_torch.models.model import (Model, batch_logical, build_model,
                                       input_specs)
@@ -92,25 +95,16 @@ ONE_DEVICE_NO_OPS = ("shard_strategy", "grad_comm_dtype",
 # and, in an MoE cell, the expert-parallel paths' wire dtype (a knob) and
 # expert capacity (a config field): the one-device MoE path reads neither
 MOE_ONE_DEVICE_NO_OPS = ("comm_codec", "capacity_factor")
-DRY_RUN = "ROADMAP.md queue A, slice 9: the dry run"
 
 
 def mesh_size(mesh) -> int:
-    return 1 if mesh is None else math.prod(axis_sizes(mesh).values())
+    return math.prod(axis_sizes(mesh).values())
 
 
 def one_device(mesh) -> bool:
     """True where the step is the one-device step: no mesh, or a mesh of
-    one device.  A mesh of more than one device that no process holds
-    raises (building for it without devices is the dry run's)."""
-    if mesh_size(mesh) == 1:
-        return True
-    if not hasattr(mesh, "mesh_dim_names"):
-        raise NotImplementedError(
-            f"a mesh of {mesh_size(mesh)} devices that no process holds "
-            f"({axis_sizes(mesh)}): building a step for it without the "
-            f"devices is not ported yet ({DRY_RUN}); pass a DeviceMesh")
-    return False
+    one device."""
+    return mesh_size(mesh) == 1
 
 
 def build_rules(mesh, cfg: ArchConfig, rt: TunableConfig
@@ -320,6 +314,7 @@ def build_mesh_train_step(cfg: ArchConfig, shape: ShapeConfig,
     data axis above 1, not moe) or the auto path (DTensors), as the
     reference chooses.  A mesh of one device takes the auto path here
     (``build_train_step`` gives it the one-device step)."""
+    mesh = as_device_mesh(mesh)
     model, optimizer, rt, attn_note, args = _train_parts(cfg, shape, rt,
                                                          optimizer)
     rules = build_rules(mesh, cfg, rt)
@@ -434,7 +429,8 @@ def _serve_params(model: Model, rt: TunableConfig):
 
 
 def _serve_rules(cfg, rt, mesh):
-    return None if one_device(mesh) else build_rules(mesh, cfg, rt)
+    return None if one_device(mesh) else \
+        build_rules(as_device_mesh(mesh), cfg, rt)
 
 
 def build_prefill_step(cfg: ArchConfig, shape: ShapeConfig,

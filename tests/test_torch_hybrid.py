@@ -253,9 +253,8 @@ def test_loss_fn_names_the_training_queue():
     """The hybrid loss is ported (tests/test_torch_hybrid_train.py holds
     it against the reference; on a mesh, tests/test_torch_spmd_families.py);
     serving on a mesh of several devices builds (held against one device
-    in tests/test_torch_spmd_serve.py), and what the hybrid family cannot
-    do yet, building a step for a mesh that no process holds, raises
-    naming its queue."""
+    in tests/test_torch_spmd_serve.py), and so does a step for a mesh
+    that no process holds (the dry run's: over the fake process group)."""
     _, tcfg = cfgs("reduced")
     _, tp = weights("reduced")
     toks = torch.zeros((1, 9), dtype=torch.int32)
@@ -272,6 +271,12 @@ def test_loss_fn_names_the_training_queue():
     shape = ShapeConfig("p", 8, 1, "prefill")
     bundle = stepfn.build_prefill_step(tcfg, shape, default_config(), mesh)
     assert bundle.rules is not None and bundle.kind == "prefill"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        stepfn.build_prefill_step(tcfg, shape, default_config(),
-                                  AbstractMesh((4, 2), ("data", "model")))
+    # a mesh that no process holds: built over the fake process group
+    from _torch_fake_group import released
+    with released():
+        bundle = stepfn.build_prefill_step(
+            tcfg, shape, default_config(),
+            AbstractMesh((4, 2), ("data", "model")))
+        mesh = bundle.rules.mesh
+        assert tuple(mesh.mesh_dim_names) == ("data", "model")
+        assert tuple(mesh.shape) == (4, 2) and bundle.kind == "prefill"

@@ -115,9 +115,9 @@ print("imported", len(mods))
 
 def test_unported_parts_raise():
     """Since slice 7 (multi-device) the model functions take sharding
-    rules: the refusals are gone.  What is still not ported raises,
-    naming its slice: a step for a mesh that no process holds (the dry
-    run, slice 9)."""
+    rules: the refusals are gone.  Since slice 9 (the dry run) a step
+    for a mesh that no process holds builds too, over the fake process
+    group: nothing of the reference is left unported."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.params import default_config
     from repro_torch.launch.mesh import AbstractMesh
@@ -136,9 +136,12 @@ def test_unported_parts_raise():
                            ((2, 4), 1, "ep_gather"), ((8, 1), 32, None)):
         rules = ShardingRules(AbstractMesh(shape, ("data", "model")), "tp")
         assert moe._ep_paths_applicable(cfg, rules, S) == path
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        stepfn.build_step(cfg, ShapeConfig("t", 64, 8, "train"),
-                          default_config(), {"data": 4, "model": 2})
+    from _torch_fake_group import released
+    with released():
+        bundle = stepfn.build_step(cfg, ShapeConfig("t", 64, 8, "train"),
+                                   default_config(), {"data": 4, "model": 2})
+        assert tuple(bundle.rules.mesh.shape) == (4, 2)
+        assert bundle.notes["explicit_comm"] is False    # moe: auto path
     # a mesh of one device is the one-device step, with its notes
     bundle = stepfn.build_step(cfg, ShapeConfig("t", 64, 8, "train"),
                                default_config(), AbstractMesh((1, 1), (
