@@ -2952,7 +2952,8 @@ def phase_dryrun(proc, t0: float, out: pathlib.Path,
     """Wait for the dry run :func:`start_dryrun` started: it must exit 0
     with every record ``ok``, or ``skip`` where ``shape_applicable``
     says so.  Returns its wall time (its start to its last record) and
-    the status of each record."""
+    the status of each record (an ``ok`` one with its roofline, peak,
+    collective bytes per chip and their summary by kind)."""
     from repro_torch.configs import SHAPES, get_config, shape_applicable
     try:
         proc.wait(timeout=max(1.0, t0 + timeout - time.time()))
@@ -2980,7 +2981,9 @@ def phase_dryrun(proc, t0: float, out: pathlib.Path,
                 {"status": "ok", "s": rec["compile_s"],
                  "total_s": rec["roofline"]["total_s"],
                  "bottleneck": rec["roofline"]["bottleneck"],
-                 "peak_bytes": rec["memory_analysis"]["peak_bytes"]})
+                 "peak_bytes": rec["memory_analysis"]["peak_bytes"],
+                 "collective_bytes": rec["roofline"]["collective_bytes"],
+                 "coll_summary": rec["roofline"]["coll_summary"]})
     return {"wall_s": round(last - t0, 1), "arch": DRYRUN_ARCH,
             "records": statuses}
 

@@ -20,7 +20,8 @@ live under private modules (the port runs on torch 2.11 on the card and
     ``torch.distributed`` op's boxed argument;
   * ``sharding_propagation`` — marks DTensor's sharding propagation,
     whose ops (run at global shapes, to learn an op's output) are no
-    rank's work.
+    rank's work; ``clear_sharding_cache`` drops its cached decisions
+    and ``outside_modes`` sets every dispatch mode aside.
 
 Every import happens when a function is called, never when this module
 is imported.
@@ -68,6 +69,31 @@ def unfaked():
     inside are real."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     return unset_fake_temporarily()
+
+
+def outside_modes():
+    """A context in which every active dispatch mode (a fake mode, a
+    counting mode) is set aside: a process group made inside is made as
+    outside any step."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    return _disable_current_modes()
+
+
+def clear_sharding_cache():
+    """Drop DTensor's cached sharding propagation (this thread's, and the
+    native dispatch cache where the release has one): its entries carry
+    the meshes of the op schemas they were made for."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cached in (prop.propagate_op_sharding,
+                   getattr(prop, "_propagate_tensor_meta_cached", None)):
+        if hasattr(cached, "cache_clear"):
+            cached.cache_clear()
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
 
 
 def storage_key(t) -> int:

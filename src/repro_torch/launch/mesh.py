@@ -162,6 +162,10 @@ def fake_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
                 f"({dist.get_backend()}, {dist.get_world_size()} ranks)")
         if dist.get_world_size() != n:
             dist.destroy_process_group()
+            # DTensor's cached sharding decisions hold the old group's
+            # meshes (meshes of one layout compare equal): a DTensor made
+            # from them would name groups the restart took down
+            compat.clear_sharding_cache()
     if not dist.is_initialized():
         dist.init_process_group("fake", store=compat.fake_store(), rank=0,
                                 world_size=n)

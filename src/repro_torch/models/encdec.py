@@ -102,7 +102,7 @@ def _positions(h):
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy of the decoder -> (loss, {})."""
     enc_out = encode(p, batch["frames"], cfg, rt, rules)
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if rules is not None:
         h = rules.constrain(h, "batch", None, None)
     positions = _positions(h)
@@ -151,7 +151,7 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     norms ``ln1`` and projects the cross K/V twice: once for the cache,
     once inside the block."""
     enc_out = encode(p, batch["frames"], cfg, rt, rules)
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if rules is not None:
         h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
@@ -159,11 +159,11 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
 
     def body(x, bp):
         hn = L.rmsnorm(x, bp["ln1"], rt, cfg.norm_eps)
-        k = L.heads_in(hn, L.cast(bp["attn"]["wk"], rt))
-        v = L.heads_in(hn, L.cast(bp["attn"]["wv"], rt))
+        k = L.heads_in(hn, bp["attn"]["wk"], rt, rules)
+        v = L.heads_in(hn, bp["attn"]["wv"], rt, rules)
         k = L.rope(k, positions, cfg.rope_theta)
-        xk = L.heads_in(enc_out, L.cast(bp["xattn"]["wk"], rt))
-        xv = L.heads_in(enc_out, L.cast(bp["xattn"]["wv"], rt))
+        xk = L.heads_in(enc_out, bp["xattn"]["wk"], rt, rules)
+        xv = L.heads_in(enc_out, bp["xattn"]["wv"], rt, rules)
         x = _dec_block(bp, x, enc_out, positions, cfg, rt, rules)
         kq, ks = L.quantize_kv(k, rt.kv_cache_dtype)
         vq, vs = L.quantize_kv(v, rt.kv_cache_dtype)
@@ -195,7 +195,7 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     ``rt.donate_buffers`` keeps the meaning ``transformer.decode_fn``
     gives it for the self cache (in place when true, on a copy when
     false); the cross cache is only read."""
-    h = L.embed(p["embed"], tokens, rt)
+    h = L.embed(p["embed"], tokens, rt, rules)
     pos = int(cache["pos"])
     if rules is not None:
         xk = cache["cross_k"]
@@ -217,7 +217,7 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
         x = x + a
         # cross-attention against the fixed encoder cache
         hn = L.rmsnorm(x, bp["lnx"], rt, cfg.norm_eps)
-        q = L.heads_in(hn, L.cast(bp["xattn"]["wq"], rt))
+        q = L.heads_in(hn, bp["xattn"]["wq"], rt, rules)
         kf = L._repeat_kv(xk.to(L.dt(rt)), n_rep)
         vf = L._repeat_kv(xv.to(L.dt(rt)), n_rep)
         if rules is not None:
@@ -226,7 +226,8 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
         o = L.full_attention(q, kf, vf, causal=False, rt=rt)
         if rules is not None:
             o = rules.constrain(o, "batch", None, "heads", None)
-        x = x + L.heads_out(o, L.cast(bp["xattn"]["wo"], rt))
+        x = x + L.residual(L.heads_out(o, bp["xattn"]["wo"], rt, rules),
+                           hn)
         hn = L.rmsnorm(x, bp["ln2"], rt, cfg.norm_eps)
         return x + L.mlp_block(bp["mlp"], hn, cfg=cfg, rt=rt,
                                rules=rules), None

@@ -31,15 +31,7 @@ import repro_torch.kernels  # noqa: F401  (its import warms the host's exp)
 from repro_torch.core.params import TunableConfig
 from repro_torch.runtime.loops import tree_map
 from repro_torch.runtime.remat import torch_dtype
-from repro_torch.runtime.sharding import is_dtensor
-
-
-def _reduced(x):
-    """A DTensor with no partial placement (the pending sums reduced)."""
-    from torch.distributed.tensor import Replicate
-    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
-    return x if pl == tuple(x.placements) else \
-        x.redistribute(x.device_mesh, pl)
+from repro_torch.runtime.sharding import is_dtensor, move, pinned, reduced
 
 
 def _whole_last_dim(x):
@@ -83,13 +75,13 @@ def sharded_kernel(fn, out, *args):
     eager ops of a train step), an argument's gradient is split where
     the argument is, and partial (a sum over the ranks) on a mesh dim
     that splits another argument but not this one: every rank there used
-    all of it."""
+    all of it (and is reduced there, before it flows on)."""
     if not any(is_dtensor(a) for a in args):
         return fn(*args)
     from torch.distributed.tensor import Partial, Replicate
     from repro_torch.compat import local_map
     # a pending sum is reduced first: ``fn`` sees whole values
-    args = tuple(_reduced(a) if is_dtensor(a) else a for a in args)
+    args = tuple(reduced(a) if is_dtensor(a) else a for a in args)
     mesh = next(a for a in args if is_dtensor(a)).device_mesh
     ins = tuple(tuple(a.placements) if is_dtensor(a) else None
                 for a in args)
@@ -98,6 +90,11 @@ def sharded_kernel(fn, out, *args):
     grads = tuple(None if pl is None else tuple(
         p if p.is_shard() else Partial() if split[i] else Replicate()
         for i, p in enumerate(pl)) for pl in ins)
+    # a gradient that comes back as a pending sum is reduced here, at
+    # the kernel's boundary, as the reference's partitioner reduces it:
+    # DTensor would carry it into ops that cannot take it
+    args = tuple(pinned(a) if g is not None and any(
+        p.is_partial() for p in g) else a for a, g in zip(args, grads))
     place = lambda o: ins[o] if isinstance(o, int) else tuple(o)
     # one output: its placements as a list (a tuple means one per output)
     outs = list(place(out)) if isinstance(out, int) else \
@@ -111,10 +108,97 @@ def on(x, placements):
     plain tensor as it is."""
     if not is_dtensor(x):
         return x
-    x = _reduced(x)
+    x = reduced(x)
     placements = tuple(placements)
-    return x if tuple(x.placements) == placements else \
-        x.redistribute(x.device_mesh, placements)
+    return x if tuple(x.placements) == placements else move(x, placements)
+
+
+def use(w, rt: TunableConfig, rules, x=None):
+    """A parameter as a product takes it: cast to the compute dtype and,
+    on a mesh, on its use placements (``ShardingRules.use_placements``:
+    all-gathered over the fsdp axes, its gradient reduce-scattered back
+    onto them), as the reference's partitioner gathers the weight, never
+    the batch.  With ``x``, the activation the product takes ``w`` with:
+    where ``_moves_rows`` says so (a decode step's few tokens), ``w``
+    stays where it lies and the product moves the rows (``_for``).
+    Without rules, ``cast(w, rt)``."""
+    w = cast(w, rt)
+    if rules is None or not is_dtensor(w):
+        return w
+    pl = rules.use_placements(w.placements)
+    if x is not None and _moves_rows(
+            x.numel(), w, pl, _operand(x, w) == tuple(x.placements)):
+        return w
+    return on(w, pl)
+
+
+def _moves_rows(n: int, w, placements, placed: bool = False) -> bool:
+    """Whether an activation of ``n`` elements moves rather than ``w``
+    go to ``placements``.  A step that takes no gradient (serving) moves
+    the smaller operand, as the reference's partitioner weighs the two
+    (a decode step's few tokens, never a prefill's rows), and leaves
+    ``w`` where it lies when the activation is already ``placed`` for it
+    (a decode step's residual, split along d where the weights lie).  A
+    train step gathers the weight: the rows' move would come back in the
+    backward, where the weight's gradient is reduce-scattered once."""
+    return (tuple(w.placements) != tuple(placements)
+            and not (torch.is_grad_enabled() and w.requires_grad)
+            and (placed or n < w.numel()))
+
+
+def _operand(x, w):
+    """The placements of the activation ``x`` for a product with the
+    parameter ``w`` (contracting ``x``'s last dim with ``w``'s first):
+    split along its last dim on a mesh dim that splits ``w``'s first,
+    whole on one that splits another dim of ``w`` (its rows gathered),
+    as it is elsewhere; the product then moves nothing (a split
+    contraction leaves a pending sum)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(x.ndim - 1) if p.is_shard(0) else
+                 Replicate() if p.is_shard() else q
+                 for p, q in zip(w.placements, x.placements))
+
+
+def _for(x, w):
+    """``x`` on its placements for a product with ``w`` (``_operand``)."""
+    return on(x, _operand(x, w)) if is_dtensor(w) else x
+
+
+def dense(x, w, rt: TunableConfig, rules):
+    """``x @ w`` for a 2-D parameter ``w``, on a mesh with ``w`` where
+    ``use`` puts it and ``x`` placed for it."""
+    w = use(w, rt, rules, x)
+    return _rows_summed(_for(x, w) @ w, rules)
+
+
+def residual(y, like):
+    """A sub-block's output (B, S, d) on the placements of the residual
+    stream ``like`` (the block's input or its norm), its gradient too: a
+    row-parallel product's pending sum over the model axis is
+    all-reduced before the residual add, as the reference's partitioner
+    reduces it.  The stream is split along the batch, or, in a step
+    whose products move their rows (``use``), along d over the fsdp
+    axes, where the weights lie (``embed``)."""
+    if not is_dtensor(like):
+        return y
+    return pinned(move(y, like.placements))
+
+
+def _rows_summed(y, rules):
+    """A product's output with a pending sum over an fsdp axis (its
+    rows were moved to the weight, ``_for``) reduce-scattered onto the
+    batch rows there (all-reduced where the rows do not divide); a
+    pending sum over the model axis is the caller's."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = y.device_mesh
+    rows = Shard(0) if y.shape[0] % math.prod(
+        mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
+        if n in rules.fsdp_axes) == 0 else Replicate()
+    pl = tuple(rows if p.is_partial() and n in rules.fsdp_axes else p
+               for n, p in zip(mesh.mesh_dim_names, y.placements))
+    return y if pl == tuple(y.placements) else move(y, pl)
 
 
 def moved(placements, dims):
@@ -264,6 +348,16 @@ def rmsnorm(x, scale, rt: TunableConfig, eps: float = 1e-5):
             0, x, scale)
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if is_dtensor(x):
+        # the scale split as the normed dim is (whole on the residual
+        # stream); a split normed dim's mean square all-reduced, its
+        # gradient too; the output's gradient reduced to the output's
+        # placements here, where the products it feeds leave it pending
+        scale = on(scale, moved(x.placements, {x.ndim - 1: 0}))
+        if any(p.is_shard(x.ndim - 1) for p in x.placements):
+            var = pinned(reduced(var))
+        y = ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+        return pinned(y)
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
 
 
@@ -308,17 +402,21 @@ def attn_spec(cfg) -> Dict[str, PSpec]:
 def pin(x):
     """``x`` as it is, with its gradient brought back to ``x``'s own
     placements: DTensor may hand a flattened weight's gradient back split
-    along a dim whose unflattening does not divide."""
-    return x.redistribute(x.device_mesh, x.placements)
+    along a dim whose unflattening does not divide, or a gradient pending
+    over an axis to an op it cannot take a pending sum through."""
+    return pinned(x)
 
 
-def heads_in(x, w):
-    """``einsum("bsd,dhk->bshk", x, w)``.  On DTensors as one product
-    with the weight's head dims flattened: DTensor's einsum can view its
-    operands into splits that do not divide (9 heads on 2 ranks)."""
+def heads_in(x, w, rt: TunableConfig, rules):
+    """``einsum("bsd,dhk->bshk", x, w)`` of the parameter ``w`` (``use``).
+    On DTensors as one product with the weight's head dims flattened:
+    DTensor's einsum can view its operands into splits that do not
+    divide (9 heads on 2 ranks)."""
+    w = use(w, rt, rules, x)
     if not is_dtensor(w):
         return torch.einsum("bsd,dhk->bshk", x, w)
-    y = x @ pin(w.flatten(1))
+    wf = pin(w.flatten(1))
+    y = _rows_summed(_for(x, wf) @ wf, rules)
     # the product may come out split along h*k where h does not divide
     split = math.prod(n for pl, n in zip(y.placements, y.device_mesh.shape)
                       if getattr(pl, "dim", None) == y.ndim - 1)
@@ -327,11 +425,13 @@ def heads_in(x, w):
     return y.unflatten(-1, tuple(w.shape[1:]))
 
 
-def heads_out(o, w):
+def heads_out(o, w, rt: TunableConfig, rules):
     """``einsum("bshk,hkd->bsd", o, w)``, on DTensors as ``heads_in``."""
+    w = use(w, rt, rules, o)
     if not is_dtensor(w):
         return torch.einsum("bshk,hkd->bsd", o, w)
-    return pin(o.flatten(2)) @ pin(w.flatten(0, 1))
+    wf = pin(w.flatten(0, 1))
+    return _for(pin(o.flatten(2)), wf) @ wf
 
 
 def _repeat_kv(k, n_rep: int):
@@ -392,9 +492,9 @@ def attention_block(p, x, *, cfg, rt: TunableConfig, rules, positions,
     causal mask, so it takes the eager path of ``full_attention``."""
     B = x.shape[0]
     src = x if kv_x is None else kv_x
-    q = heads_in(x, cast(p["wq"], rt))
-    k = heads_in(src, cast(p["wk"], rt))
-    v = heads_in(src, cast(p["wv"], rt))
+    q = heads_in(x, p["wq"], rt, rules)
+    k = heads_in(src, p["wk"], rt, rules)
+    v = heads_in(src, p["wv"], rt, rules)
     if kv_x is None:      # self-attention gets RoPE
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions if kv_positions is None else kv_positions,
@@ -415,7 +515,7 @@ def attention_block(p, x, *, cfg, rt: TunableConfig, rules, positions,
                        rules=rules)
     if rules is not None:
         o = rules.constrain(o, "batch", None, "heads", None)
-    return heads_out(o, cast(p["wo"], rt))
+    return residual(heads_out(o, p["wo"], rt, rules), x)
 
 
 # ------------------------------------------------------- KV-cache decode
@@ -467,9 +567,9 @@ def decode_attention_block(p, x, layer_cache, pos: int, *, cfg,
     """
     B = x.shape[0]
     pos = int(pos)
-    q = heads_in(x, cast(p["wq"], rt))
-    k = heads_in(x, cast(p["wk"], rt))
-    v = heads_in(x, cast(p["wv"], rt))
+    q = heads_in(x, p["wq"], rt, rules)
+    k = heads_in(x, p["wk"], rt, rules)
+    v = heads_in(x, p["wv"], rt, rules)
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posv, cfg.rope_theta)
     k = rope(k, posv, cfg.rope_theta)
@@ -511,7 +611,7 @@ def decode_attention_block(p, x, layer_cache, pos: int, *, cfg,
         args = [on(a, pl if i and i <= len(names) else qpl)
                 for i, a in enumerate(args)]
     o = sharded_kernel(attend, 0, *args)
-    out = heads_out(o, cast(p["wo"], rt))
+    out = residual(heads_out(o, p["wo"], rt, rules), x)
     return out, cache
 
 
@@ -565,15 +665,16 @@ def mlp_spec(cfg, d_ff: Optional[int] = None) -> Dict[str, PSpec]:
 
 
 def mlp_block(p, x, *, cfg, rt: TunableConfig, rules):
+    w = lambda a, n: dense(a, p[n], rt, rules)
     if cfg.mlp_act == "silu":
-        h = F.silu(x @ cast(p["wg"], rt)) * (x @ cast(p["wu"], rt))
+        h = F.silu(w(x, "wg")) * w(x, "wu")
     elif cfg.mlp_act == "relu2":
-        h = torch.square(F.relu(x @ cast(p["wu"], rt)))
+        h = torch.square(F.relu(w(x, "wu")))
     else:   # the reference's gelu is the tanh approximation
-        h = F.gelu(x @ cast(p["wu"], rt), approximate="tanh")
+        h = F.gelu(w(x, "wu"), approximate="tanh")
     if rules is not None:
         h = rules.constrain(h, "batch", None, "mlp")
-    return h @ cast(p["wd"], rt)
+    return residual(w(h, "wd"), x)
 
 
 # ---------------------------------------------------------------- embed
@@ -589,23 +690,38 @@ def embed_spec(cfg) -> Dict[str, PSpec]:
     return out
 
 
-def embed(p, tokens, rt: TunableConfig):
+def embed(p, tokens, rt: TunableConfig, rules=None):
     table = cast(p["embedding"], rt)
     if not is_dtensor(table):
         return table[tokens.long()]
-    # on a mesh each rank looks its tokens up in its block of the table:
-    # a vocab split stays split (rows outside the rank's slice read 0 and
-    # the ranks' rows are summed), an embed split is gathered
+    # on a mesh each rank looks tokens up in its block of the table.  A
+    # vocab split stays split where the tokens are whole (rows outside
+    # the rank's slice read 0 and the ranks' rows are summed), and so
+    # does a split of d (each rank its columns); the table is gathered
+    # over the fsdp axes (``use``), or, for a decode step's few tokens,
+    # stays where it lies and the tokens are gathered instead: the
+    # residual stream then starts split along d, where the weights lie
     from torch.distributed.tensor import Partial, Replicate, Shard
     from repro_torch.compat import local_map
     mesh = table.device_mesh
     tokens = replicated_like(tokens, table)
-    keep = [p.is_shard(0) and not t.is_shard()
-            for p, t in zip(table.placements, tokens.placements)]
-    w_in = tuple(Shard(0) if k else Replicate() for k in keep)
-    out = tuple(Partial() if k else t for k, t in zip(keep, tokens.placements))
-    grad = tuple(Shard(0) if k else Partial() if t.is_shard() else Replicate()
-                 for k, t in zip(keep, tokens.placements))
+    if rules is not None and _moves_rows(
+            tokens.numel() * table.shape[1], table,
+            rules.use_placements(table.placements)):
+        tokens = on(tokens, tuple(
+            Replicate() if w.is_shard(1) else t
+            for w, t in zip(table.placements, tokens.placements)))
+    else:
+        table = use(table, rt, rules)
+    keep = [w.is_shard() and not t.is_shard()
+            for w, t in zip(table.placements, tokens.placements)]
+    w_in = tuple(w if k else Replicate()
+                 for k, w in zip(keep, table.placements))
+    out = tuple((Partial() if w.is_shard(0) else Shard(tokens.ndim))
+                if k else t
+                for k, w, t in zip(keep, table.placements, tokens.placements))
+    grad = tuple(w if k else Partial() if t.is_shard() else Replicate()
+                 for k, w, t in zip(keep, w_in, tokens.placements))
     lo = _block_start(mesh, w_in, 0, table.shape[0])
 
     def look(w, t):
@@ -618,7 +734,7 @@ def embed(p, tokens, rt: TunableConfig):
                   in_placements=(w_in, tuple(tokens.placements)),
                   in_grad_placements=(grad, tuple(tokens.placements)),
                   device_mesh=mesh, redistribute_inputs=True)(table, tokens)
-    return _reduced(y)
+    return reduced(y)
 
 
 def _block_start(mesh, placements, dim: int, size: int) -> int:
@@ -644,7 +760,12 @@ def unembed(p, x, cfg, rt: TunableConfig, rules):
     if w is None:
         w = p["embedding"].T
     if is_dtensor(w):
-        logits = x.float() @ cast(w, rt).float()
+        # the table gathered over the fsdp axes, or, for a decode step's
+        # few rows, where it lies: each rank takes the rows at its block
+        # of d, and the constraint below reduce-scatters the partial
+        # logits back onto the rows
+        w = use(w, rt, rules, x)
+        logits = _for(x, w).float() @ w.float()
     else:
         logits = torch.einsum("bsd,dv->bsv", x.float(), cast(w, rt).float())
     if rules is not None:
@@ -660,11 +781,19 @@ def xent_loss(logits, labels, cfg):
     mask = replicated_like(torch.arange(V, device=logits.device) >= cfg.vocab,
                            logits)
     logits = logits.masked_fill(mask, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
     if not is_dtensor(logits):
+        logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     else:
-        gold = _gold_logit(logits, labels)
+        # a vocab split stays split: the row max and the sum of exps
+        # are each all-reduced over the model axis, as the reference's
+        # partitioner reduces them
+        top = reduced(torch.amax(logits, dim=-1, keepdim=True)).detach()
+        total = reduced(torch.exp(logits - top).sum(-1))
+        logz = torch.log(total) + top[..., 0]
+        gold = reduced(_gold_logit(logits, labels))
+        # the mean's pending sums over every mesh dim in one all-reduce
+        return reduced(torch.mean(logz - gold))
     return torch.mean(logz - gold)
 
 

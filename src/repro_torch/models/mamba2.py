@@ -63,16 +63,17 @@ def _causal_conv(x, w, state=None):
     return y, new_state
 
 
-def _gates(p, x, cfg, rt):
+def _gates(p, x, cfg, rt, rules=None):
     """Common projections.  x:(B,S,d) -> (xin(B,S,d_in), z, Bm, Cm, dt, a).
 
     ``dt_bias`` and ``A_log`` are read in their master dtype (f32), as the
     reference reads them; ``cast_params`` leaves them uncast."""
-    z = x @ L.cast(p["wz"], rt)
-    xin = x @ L.cast(p["wx"], rt)
-    Bm = (x @ L.cast(p["wB"], rt)).float()
-    Cm = (x @ L.cast(p["wC"], rt)).float()
-    dt = F.softplus((x @ L.cast(p["wdt"], rt)).float() + p["dt_bias"])
+    w = lambda n: L.dense(x, p[n], rt, rules)
+    z = w("wz")
+    xin = w("wx")
+    Bm = w("wB").float()
+    Cm = w("wC").float()
+    dt = F.softplus(w("wdt").float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     loga = dt * A                    # (B,S,H) log decay <= 0
     return xin, z, Bm, Cm, dt, loga
@@ -162,7 +163,7 @@ def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
     H = d_in // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
-    xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt)
+    xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt, rules)
     conv, D, state = L.cast(p["conv"], rt), p["D"], None
     if rules is not None:
         xin = rules.constrain(xin, "batch", None, "ssm_inner")
@@ -186,7 +187,7 @@ def mamba_block(p, x, cfg, rt: TunableConfig, rules, want_state: bool = False):
     y = L.rmsnorm(y * F.silu(z), p["gln"], rt, cfg.norm_eps)
     if rules is not None:
         y = rules.constrain(y, "batch", None, "ssm_inner")
-    out = x + y @ L.cast(p["wo"], rt)
+    out = x + L.residual(L.dense(y, p["wo"], rt, rules), x)
     if want_state:
         return out, {"ssm": h_final, "conv": conv_state}
     return out
@@ -214,7 +215,7 @@ def mamba_decode_block(p, x, layer_cache, cfg, rt: TunableConfig, rules):
     H = d_in // cfg.ssm_head_dim
     P = cfg.ssm_head_dim
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
-    xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt)
+    xin, z, Bm, Cm, dt, loga = _gates(p, h, cfg, rt, rules)
     conv, D, state = L.cast(p["conv"], rt), p["D"], layer_cache["ssm"]
     conv_state = layer_cache["conv"]
     if rules is not None:
@@ -239,5 +240,5 @@ def mamba_decode_block(p, x, layer_cache, cfg, rt: TunableConfig, rules):
     y = L.rmsnorm(y.to(x.dtype) * F.silu(z), p["gln"], rt, cfg.norm_eps)
     if rules is not None:
         y = rules.constrain(y, "batch", None, "ssm_inner")
-    out = x + y @ L.cast(p["wo"], rt)
+    out = x + L.residual(L.dense(y, p["wo"], rt, rules), x)
     return out, {"ssm": hs, "conv": conv_state}

@@ -285,7 +285,11 @@ def moe_mlp(p, x, cfg, rt: TunableConfig, rules):
         if rules is None or not L.is_dtensor(x):
             return _dense_moe(p, x, cfg, rt)
         return _dense_on_mesh(p, x, cfg, rt, rules)
-    return _ep_moe(p, x, cfg, rt, rules, path)
+    y, aux = _ep_moe(p, x, cfg, rt, rules, path)
+    # back onto the residual stream's placements (the EP paths hand it
+    # split along the sequence, or along the batch where a decode
+    # step's stream is split along d)
+    return L.residual(y, x), aux
 
 
 def _grad_placements(rules, spec):
@@ -412,10 +416,13 @@ def _ep_moe(p, x, cfg, rt, rules, path: str):
     wd_in = ("model", None, fsdp_in_mesh or None)
     specs = (xspec, (None, None), w_in, w_in, wd_in)
     rep = (Replicate(),) * mesh.ndim
+    # the router gathered whole by ``layers.on`` (one all-gather over the
+    # fsdp axes together, where local_map would take one an axis)
+    router = L.on(L.cast(p["router"], rt), rep)
     y, aux = local_map(
         fn, out_placements=(rules.placements(xspec), rep),
         in_placements=tuple(rules.placements(s) for s in specs),
         in_grad_placements=tuple(_grad_placements(rules, s) for s in specs),
         device_mesh=mesh, redistribute_inputs=True)(
-            x, L.cast(p["router"], rt), p["wg"], p["wu"], p["wd"])
+            x, router, p["wg"], p["wu"], p["wd"])
     return y, aux

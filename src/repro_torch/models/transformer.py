@@ -69,7 +69,7 @@ def _block(bp, x, positions, cfg, rt: TunableConfig, rules):
 
 def embed_inputs(p, batch, cfg, rt: TunableConfig, rules):
     """tokens (+ optional precomputed frontend embeddings) -> (B,S,d)."""
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if "frontend_embeds" in batch:  # vlm stub: prepend patch embeds
         h = torch.cat([L.cast(batch["frontend_embeds"], rt), h], dim=1)
     if rules is not None:
@@ -156,8 +156,8 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
         x = remat.from_carry(x, rt)
         hn = L.rmsnorm(x, bp["ln1"], rt, cfg.norm_eps)
         # k/v recomputed once for cache storage (cheap vs attention itself)
-        k = L.heads_in(hn, L.cast(bp["attn"]["wk"], rt))
-        v = L.heads_in(hn, L.cast(bp["attn"]["wv"], rt))
+        k = L.heads_in(hn, bp["attn"]["wk"], rt, rules)
+        v = L.heads_in(hn, bp["attn"]["wv"], rt, rules)
         k = L.rope(k, positions, cfg.rope_theta)
         x, _ = _block(bp, x, positions, cfg, rt, rules)
         kq, ks = L.quantize_kv(k, rt.kv_cache_dtype)
@@ -192,7 +192,7 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     consumed, as a donated buffer is); when false the step works on a
     copy and the given cache is left as it was.  The results are the
     same either way."""
-    h = L.embed(p["embed"], tokens, rt)
+    h = L.embed(p["embed"], tokens, rt, rules)
     pos = int(cache["pos"])
     layers = cache["layers"]
     if rules is not None:

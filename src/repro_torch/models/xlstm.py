@@ -128,32 +128,41 @@ def _mlstm_step(q, k, v, ig, lf, hs, ns):
     return y, hs, ns
 
 
-def _values(h, wv, rules):
-    """``einsum("bsd,dhk->bshk", h, wv)``; on a mesh each rank's block of
-    the value dim from its block of ``wv`` (the product over flattened
-    heads would split along h*k with k split: a strided shard)."""
+def _values(h, wv, rt, rules):
+    """``einsum("bsd,dhk->bshk", h, wv)`` of the parameter ``wv``; on a
+    mesh each rank's block of the value dim from its block of ``wv``
+    (the product over flattened heads would split along h*k with k
+    split: a strided shard), ``wv`` where ``layers.use`` puts it and
+    ``h`` placed for it; a split contraction's pending sum is reduced
+    onto the batch rows."""
+    wv = L.use(wv, rt, rules, h)
     if rules is None:
         return torch.einsum("bsd,dhk->bshk", h, wv)
+    from torch.distributed.tensor import Partial, Shard
     B, S, _ = h.shape
-    out = rules.placements(rules.act_spec(("batch", None, None, "ssm_inner"),
-                                          (B, S) + tuple(wv.shape[1:])))
-    h = L.on(h, L.moved(out, {0: 0}))
-    wv = L.on(wv, L.moved(out, {3: 2}))
-    return L.sharded_kernel(
+    want = rules.placements(rules.act_spec(
+        ("batch", None, None, "ssm_inner"), (B, S) + tuple(wv.shape[1:])))
+    h = L._for(h, wv)
+    out = tuple(Partial() if p.is_shard(0) else Shard(p.dim + 1)
+                if p.is_shard() else q
+                for p, q in zip(wv.placements, h.placements))
+    v = L.sharded_kernel(
         lambda a, w: (torch.einsum("bsd,dhk->bshk", a, w),), (out,), h,
         wv)[0]
+    return L.on(v, want)
 
 
 def mlstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
                 state=None, decode=False):
     B, S, d = x.shape
     h = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
-    q = L.heads_in(h, L.cast(p["wq"], rt)) / (cfg.hd ** 0.5)
-    k = L.heads_in(h, L.cast(p["wk"], rt))
-    v = _values(h, L.cast(p["wv"], rt), rules)
-    ig = torch.sigmoid((h @ L.cast(p["wi"], rt)).float())
-    lf = _logsigmoid((h @ L.cast(p["wf"], rt)).float())
-    og = torch.sigmoid(h @ L.cast(p["wog"], rt))
+    w = lambda a, n: L.dense(a, p[n], rt, rules)
+    q = L.heads_in(h, p["wq"], rt, rules) / (cfg.hd ** 0.5)
+    k = L.heads_in(h, p["wk"], rt, rules)
+    v = _values(h, p["wv"], rt, rules)
+    ig = torch.sigmoid(w(h, "wi").float())
+    lf = _logsigmoid(w(h, "wf").float())
+    og = torch.sigmoid(w(h, "wog"))
     args = (q, k, v, ig, lf) + tuple(state or ())
     outs = None
     if rules is not None:
@@ -176,7 +185,7 @@ def mlstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
     else:
         y = y.reshape(B, S, d)
     y = y.to(x.dtype) * og
-    out = x + y @ L.cast(p["wo"], rt)
+    out = x + L.residual(w(y, "wo"), x)
     if want_state or decode:
         return out, tuple(new_state)
     return out
@@ -255,7 +264,7 @@ def slstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
     on each rank's batch rows under one ``local_map``."""
     B, S, d = x.shape
     hn = L.rmsnorm(x, p["ln"], rt, cfg.norm_eps)
-    zs = tuple((hn @ L.cast(p[n], rt)).float()
+    zs = tuple(L.dense(hn, p[n], rt, rules).float()
                for n in ("wi", "wf", "wz", "wog"))
     args = zs + tuple(p[n].float() for n in ("ri", "rf", "rz", "ro")) \
         + tuple(state or ())
@@ -268,7 +277,7 @@ def slstm_block(p, x, cfg, rt: TunableConfig, rules, want_state=False,
             args, (rows,) * 4 + (L.moved(rows, {}),) * 4 + (st,) * 4))
         outs = (0, st, st, st, st)
     y, *new_state = L.sharded_kernel(_slstm_scan, outs, *args)
-    out = x + y.to(x.dtype) @ L.cast(p["wo"], rt)
+    out = x + L.residual(L.dense(y.to(x.dtype), p["wo"], rt, rules), x)
     if want_state or decode:
         return out, tuple(new_state)
     return out
@@ -315,7 +324,7 @@ def forward(p, h, cfg, rt: TunableConfig, rules):
 
 def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy -> (loss, {})."""
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if rules is not None:
         h = rules.constrain(h, "batch", None, None)
     h = forward(p, h, cfg, rt, rules)
@@ -355,7 +364,7 @@ def init_cache(cfg, batch: int, max_seq: int, rt: TunableConfig,
 def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     """Run the full prompt, build every block's state, return last-token
     logits."""
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if rules is not None:
         h = rules.constrain(h, "batch", None, None)
 
@@ -388,7 +397,7 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     gives it: when true the given state tensors are updated in place and
     returned; when false the step works on a copy and the given cache is
     left as it was.  The results are the same either way."""
-    h = L.embed(p["embed"], tokens, rt)
+    h = L.embed(p["embed"], tokens, rt, rules)
     if rules is not None:
         cache = L.constrain_tree(rules, cache, cache_shapes(
             cfg, tokens.shape[0], 0, rt)[1])

@@ -90,7 +90,7 @@ def loss_fn(p, batch, cfg, rt: TunableConfig, rules):
     """Mean next-token cross-entropy -> (loss, {}).  Under the train step
     (eager ops, ``attn_impl="xla"``) the Mamba2 scan is ``ssd_chunked``;
     the kernels are forward-only."""
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if rules is not None:
         h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
@@ -133,7 +133,7 @@ def init_cache(cfg, batch: int, max_seq: int, rt: TunableConfig,
 def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
     """Run the full prompt, build the SSM/conv states and the KV cache,
     return last-token logits."""
-    h = L.embed(p["embed"], batch["tokens"], rt)
+    h = L.embed(p["embed"], batch["tokens"], rt, rules)
     if rules is not None:
         h = rules.constrain(h, "batch", None, None)
     B, S, _ = h.shape
@@ -147,8 +147,8 @@ def prefill_fn(p, batch, cfg, rt: TunableConfig, rules, max_seq: int):
         x, states = scan_layers(inner, x, gp, unroll=rt.unroll_layers)
         hn = L.rmsnorm(x, sp["ln1"], rt, cfg.norm_eps)
         # k/v recomputed once for cache storage (cheap vs attention itself)
-        k = L.heads_in(hn, L.cast(sp["attn"]["wk"], rt))
-        v = L.heads_in(hn, L.cast(sp["attn"]["wv"], rt))
+        k = L.heads_in(hn, sp["attn"]["wk"], rt, rules)
+        v = L.heads_in(hn, sp["attn"]["wv"], rt, rules)
         k = L.rope(k, positions, cfg.rope_theta)
         x = _shared_block(sp, x, positions, cfg, rt, rules)
         kq, ks = L.quantize_kv(k, rt.kv_cache_dtype)
@@ -187,7 +187,7 @@ def decode_fn(p, cache, tokens, cfg, rt: TunableConfig, rules):
     caller's cache is consumed, as a donated buffer is); when false the
     step works on a copy and the given cache is left as it was.  The
     results are the same either way."""
-    h = L.embed(p["embed"], tokens, rt)
+    h = L.embed(p["embed"], tokens, rt, rules)
     pos = int(cache["pos"])
     if rules is not None:
         B, max_seq = tokens.shape[0], cache["kv"]["k"].shape[2]

@@ -14,7 +14,8 @@ so a checkpoint of it carries the reference's keys.
 factored moments its spec minus the reduced dim.  On a mesh the state
 and the gradients are DTensors and ``update`` runs on them as it is:
 the global norm of the clip and Adafactor's row and column means are
-global reductions, so they stay global with no code of their own.
+global reductions, so they stay global (each is reduced leaf by leaf,
+over all of a leaf's mesh dims at once).
 
 ``update`` is functional by default: it returns new parameter and state
 trees and leaves its inputs as they were.  With ``inplace=True`` (the
@@ -45,8 +46,16 @@ class Optimizer(NamedTuple):
 
 
 def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(x.float())))
                           for x in tree_leaves(tree)))
+
+
+def _whole(t):
+    """A reduction of a DTensor with its pending sums reduced, those over
+    several mesh dims in one all-reduce (``sharding.reduced``); a
+    tensor as it is."""
+    from repro_torch.runtime import sharding as SH
+    return SH.reduced(t) if SH.is_dtensor(t) else t
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -181,10 +190,13 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
             g = g.float()
             g2 = torch.square(g) + eps
             if _factored(p):
-                vr = _ema(s["vr"], beta2, torch.mean(g2, dim=-1), inplace)
-                vc = _ema(s["vc"], beta2, torch.mean(g2, dim=-2), inplace)
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                    min=eps)[..., None]
+                vr = _ema(s["vr"], beta2, _whole(torch.mean(g2, dim=-1)),
+                          inplace)
+                vc = _ema(s["vc"], beta2, _whole(torch.mean(g2, dim=-2)),
+                          inplace)
+                denom = torch.clamp(
+                    _whole(torch.mean(vr, dim=-1, keepdim=True)),
+                    min=eps)[..., None]
                 u = g * torch.rsqrt(vr[..., None] / denom) \
                     * torch.rsqrt(vc[..., None, :])
                 new_s = {"vr": vr, "vc": vc}
@@ -192,7 +204,7 @@ def adafactor(lr: Callable, eps: float = 1e-30, clip_threshold: float = 1.0,
                 v = _ema(s["v"], beta2, g2, inplace)
                 u = g * torch.rsqrt(v)
                 new_s = {"v": v}
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            rms = torch.sqrt(_whole(torch.mean(torch.square(u))) + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:
                 u = u + weight_decay * p.float()

@@ -25,10 +25,12 @@ tensors onto them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import compat
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.runtime.loops import tree_map
 
@@ -202,12 +204,32 @@ class ShardingRules:
 
     def constrain(self, x, *logical: Optional[str]):
         """Redistribute a DTensor onto the placements of its logical names
-        (the reference's ``with_sharding_constraint``); a plain tensor is
+        (the reference's ``with_sharding_constraint``), its gradient
+        brought to the same placements (the constraint's transpose: a
+        pending sum over the model axis is all-reduced there, where
+        DTensor would pick a layout of its own); a plain tensor is
         returned as it is."""
         if not is_dtensor(x):
             return x
-        return x.redistribute(self.mesh, self.placements(
-            self.act_spec(logical, x.shape)))
+        return pinned(move(x, self.placements(
+            self.act_spec(logical, x.shape))))
+
+    def use_placements(self, placements):
+        """The placements a parameter on ``placements`` is used at in a
+        product: its ``param_spec``'s with the fsdp axes dropped, and
+        with any axis that splits a dim together with them (the model
+        axis folded into an attention weight's embed dim under fsdp_tp,
+        which the reference's partitioner gathers whole).  The weight is
+        all-gathered over them, and its gradient comes back
+        reduce-scattered, as XLA's FSDP moves it."""
+        from torch.distributed.tensor import Replicate
+        names = list(self.mesh.mesh_dim_names)
+        fsdp = {names.index(a) for a in self.fsdp_axes if a in names}
+        gathered = {p.dim for i, p in enumerate(placements)
+                    if i in fsdp and p.is_shard()}
+        return tuple(Replicate() if i in fsdp or
+                     (p.is_shard() and p.dim in gathered) else p
+                     for i, p in enumerate(placements))
 
     def param_sharding_tree(self, logical_tree, shape_tree):
         """Map parallel trees of logical names and shapes to specs."""
@@ -245,6 +267,140 @@ def map_specs(fn, spec_tree, *others):
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+def pinned(x):
+    """A DTensor as it is, its gradient brought back to its own
+    placements (a pending sum reduced, a split gathered or cut); a plain
+    tensor, or one without a gradient to bring, as it is."""
+    if not (is_dtensor(x) and torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Move.apply(x, tuple(x.placements))
+
+
+def reduced(x):
+    """A DTensor with no partial placement: its pending sums reduced
+    (``move``), its splits kept."""
+    from torch.distributed.tensor import Replicate
+    return move(x, tuple(Replicate() if p.is_partial() else p
+                         for p in x.placements))
+
+
+def move(x, placements):
+    """A DTensor on ``placements`` of its mesh, as ``redistribute`` puts
+    it, except that what several mesh dims do at once (a sum pending on
+    all of them reduced or scattered, a dim split over all of them
+    gathered) is one collective over them together, as the reference's
+    partitioner moves it (DTensor takes one a mesh dim).  Its gradient
+    comes back the same way."""
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    return _Move.apply(x, placements)
+
+
+def _placed(x, placements):
+    """``x`` on ``placements``, outside autograd (``move``'s work): what
+    several mesh dims do together by one collective over them, then the
+    rest by ``redistribute``."""
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    for kind, dims, k in _together(x, placements):
+        names = tuple(mesh.mesh_dim_names[i] for i in dims)
+        local = _collective(kind, x.to_local(), k, _flat(mesh, names),
+                            math.prod(mesh.size(i) for i in dims))
+        pl = tuple(placements[i] if i in dims else p
+                   for i, p in enumerate(x.placements))
+        x = DTensor.from_local(local, mesh, pl, run_check=False,
+                               shape=x.shape, stride=x.stride())
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def _together(x, placements):
+    """The moves of ``x`` onto ``placements`` that several mesh dims (of
+    more than one rank) make together, as (kind, mesh dims, tensor dim):
+    a sum (or mean) pending on all of them made whole ("all_reduce"),
+    one tensor dim split over all of them (and no other) made whole
+    ("all_gather"), or a sum pending on all of them split over them
+    along one tensor dim ("reduce_scatter")."""
+    mesh, cur = x.device_mesh, tuple(x.placements)
+    big = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    n = lambda dims: math.prod(mesh.size(i) for i in dims)
+    op = lambda i: getattr(cur[i], "reduce_op", None)
+    sums = [i for i in big if cur[i].is_partial() and op(i) == "sum"]
+    out = []
+    whole = [i for i in big if cur[i].is_partial()
+             and placements[i].is_replicate()]
+    if len(whole) > 1 and len({op(i) for i in whole}) == 1 \
+            and op(whole[0]) in ("sum", "avg"):
+        out.append(("all_reduce", whole, op(whole[0])))
+    for k in range(x.ndim):
+        split = [i for i in big if cur[i].is_shard(k)]
+        if (len(split) > 1 and all(placements[i].is_replicate()
+                                   for i in split)
+                and x.shape[k] % n(split) == 0):
+            out.append(("all_gather", split, k))
+        scatter = [i for i in big if placements[i].is_shard(k)]
+        if (len(scatter) > 1 and all(i in sums for i in scatter)
+                and not any(p.is_shard(k) for p in cur)
+                and x.shape[k] % n(scatter) == 0):
+            out.append(("reduce_scatter", scatter, k))
+    return out
+
+
+def _collective(kind: str, local, k, group, n: int):
+    """One functional collective over ``group`` (``n`` ranks) on this
+    rank's block: a gather or scatter along tensor dim ``k``; an
+    all-reduce of a sum, or of a mean where ``k`` is ``"avg"``."""
+    from torch.distributed import _functional_collectives as funcol
+    ops = torch.ops._c10d_functional
+    if kind == "all_reduce":
+        out = funcol.wait_tensor(ops.all_reduce(local.contiguous(), "sum",
+                                                group.group_name))
+        return out / n if k == "avg" else out
+    front = local.movedim(k, 0).contiguous()
+    if kind == "all_gather":
+        out = ops.all_gather_into_tensor(front, n, group.group_name)
+    else:
+        out = ops.reduce_scatter_tensor(front, "sum", n, group.group_name)
+    return funcol.wait_tensor(out).movedim(0, k)
+
+
+def _flat(mesh, names):
+    """This rank's process group over the mesh dims ``names`` together
+    (ranks in mesh order).  Every rank makes all of them, the first time
+    any is asked for, outside any step's dispatch modes; they are kept
+    on the mesh (a restarted process group comes with a new mesh)."""
+    groups = mesh.__dict__.setdefault("_repro_flat_groups", {})
+    if names not in groups:
+        import torch.distributed as dist
+        dims = [mesh.mesh_dim_names.index(n) for n in names]
+        rest = [i for i in range(mesh.ndim) if i not in dims]
+        with compat.outside_modes():
+            ranks = mesh.mesh.permute(rest + dims).reshape(
+                -1, math.prod(mesh.size(i) for i in dims)).tolist()
+            groups[names], _ = dist.new_subgroups_by_enumeration(ranks)
+    return groups[names]
+
+
+class _Move(torch.autograd.Function):
+    """``move``: forward onto the target placements, the gradient back
+    onto the source's (a source's pending sum stays pending where the
+    gradient is not split, as DTensor's redistribute gives it back)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.source = tuple(x.placements)
+        return _placed(x, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        back = tuple(Replicate() if s.is_partial() and not c.is_partial()
+                     else s for s, c in zip(ctx.source, g.placements))
+        return _placed(g, back), None
 
 
 def local_block(t: torch.Tensor, mesh, placements) -> torch.Tensor:

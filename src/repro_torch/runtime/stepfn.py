@@ -385,7 +385,7 @@ def build_mesh_train_step(cfg: ArchConfig, shape: ShapeConfig,
             loss, grads = _local_grads(model, rt, params, batch, rules)
             # each gradient on its parameter's placements before the
             # update, as the reference's out_shardings place it
-            grads = [g.redistribute(p.device_mesh, p.placements)
+            grads = [SH.move(g, p.placements)
                      for g, p in zip(grads, tree_leaves(params))]
             new_p, new_s, met = update(params, grads, opt)
             return new_p, new_s, dict(met, loss=loss)

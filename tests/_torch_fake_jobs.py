@@ -89,6 +89,68 @@ def collectives():
     return out
 
 
+FAMILIES = ("smollm-135m", "olmoe-1b-7b", "llava-next-34b", "zamba2-7b",
+            "xlstm-1.3b", "seamless-m4t-medium")
+
+
+def family_collectives():
+    """Each family's reduced train step on (4, 2) under tp and fsdp_tp:
+    collective bytes per rank, FLOPs per rank."""
+    mesh = fake_mesh((4, 2), ("data", "model"))
+    out = {}
+    for arch in FAMILIES:
+        for strategy in ("tp", "fsdp_tp"):
+            rt = default_config(shard_strategy=strategy, unroll_layers=True)
+            c = stepcount.count(build_step(get_reduced(arch), TRAIN, rt,
+                                           mesh))
+            stats = costmodel.CollectiveStats(c.collectives)
+            out[f"{arch}:{strategy}"] = {"total": stats.total_bytes(),
+                                         "summary": stats.summary(),
+                                         "flops": c.flops}
+    return out
+
+
+def full_width_collectives():
+    """The dry run's records of smollm-135m on pod_16x16 (train_4k and
+    decode_32k, the production shapes at full width): collective bytes
+    per chip."""
+    from repro_torch.launch import dryrun as dr
+    out = {}
+    for shape in ("train_4k", "decode_32k"):
+        rec = dr.run_cell("smollm-135m", shape, False, save=False)
+        out[shape] = {"status": rec["status"],
+                      "error": rec.get("error"),
+                      "collective_bytes": rec.get("roofline", {}).get(
+                          "collective_bytes")}
+    return out
+
+
+def one_collective_over_both_axes():
+    """``sharding.move`` of a DTensor on (4, 2) over both mesh dims at
+    once: a sum pending on both made whole, a dim split over both made
+    whole, and a sum pending on both split over both; the collectives a
+    count sees."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.runtime import sharding as SH
+    mesh = fake_mesh((4, 2), ("data", "model"))
+    whole, split = (Replicate(), Replicate()), (Shard(0), Shard(0))
+    out = {}
+    for name, pl, local, to in (
+            ("partial", (Partial(), Partial()), (16, 8), whole),
+            ("split", split, (2, 8), whole),
+            ("scatter", (Partial(), Partial()), (16, 8), split)):
+        x = DTensor.from_local(torch.zeros(local), mesh, pl,
+                               run_check=False, shape=torch.Size((16, 8)),
+                               stride=(8, 1))
+        counter = stepcount.StepCounter()
+        with counter:
+            y = SH.move(x, to)
+        out[name] = {"collectives": [(op.kind, op.group_size)
+                                     for op in counter.collectives],
+                     "local": list(y.to_local().shape)}
+    return out
+
+
 def xlstm_wide_model_axis():
     """The reduced xlstm-1.3b (4 heads) trained on a model axis of 8:
     the mLSTM's output is flattened from heads that do not divide the

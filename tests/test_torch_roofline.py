@@ -100,13 +100,10 @@ def test_extrapolation_matches_the_direct_count(term, runs):
 def test_collective_bytes_against_the_reference(strategy, runs):
     """Per rank, the reduced smollm train step on (4, 2) against the
     reference's partitioned HLO on 8 host devices (ratios in PERF.md).
-    dp: the gradient all-reduce's bytes within 10%; tp and fsdp: the
-    total within 0.5–2x.  fsdp_tp moves more (ROADMAP queue C): where
-    the activation block is the smaller operand (at this reduced width),
-    DTensor's propagation all-gathers the batch over the data axis
-    instead of the fsdp weight, as XLA's partitioner does, and the
-    backward reduce-scatters its gradient back: the excess is those
-    all-gathers and reduce-scatters."""
+    dp: the gradient all-reduce's bytes within 10%; fsdp: the total
+    within 0.5–2x; tp and fsdp_tp: the total within 0.5–1.3x, the
+    weight gathered over the fsdp axes and never the batch (every
+    family: ``test_torch_collectives``)."""
     got = runs["collectives"][strategy]
     want = runs["reference_collectives"][strategy]
     ratio = got["total"] / want["total"]
@@ -116,14 +113,10 @@ def test_collective_bytes_against_the_reference(strategy, runs):
             want["summary"]["all-reduce"]["bytes"], rel=0.1)
         assert set(got["summary"]) == {"all-reduce"}
         assert got["groups"] == [4]                  # the data axis
-    elif strategy == "fsdp_tp":
-        moved = lambda d, kind: d["summary"].get(kind, {}).get("bytes", 0)
-        excess = sum(moved(got, k) - moved(want, k)
-                     for k in ("all-gather", "reduce-scatter"))
-        assert ratio >= 0.5
-        assert excess >= 0.9 * (got["total"] - want["total"])
-    else:
+    elif strategy == "fsdp":
         assert 0.5 <= ratio <= 2.0, ratio
+    else:
+        assert 0.5 <= ratio <= 1.3, ratio
 
 
 def test_default_factory_counts_the_production_mesh(runs):
